@@ -5,7 +5,8 @@
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    every CUDA source of flybody_tpu_torch/csrc with nvcc
+  2. build    every CUDA source of flybody_tpu_torch/csrc with nvcc, one
+              process per source, all started together
   3. main     walk_on_ball at B=4096, float32: reset, one warm-up control
               step, then 20 autoreset_step calls with mid-range actions;
               obs and reward must be finite and the solve_rows kernel
@@ -14,10 +15,23 @@ Phases (each prints its lines; any failure exits non-zero):
               card (float32) against the same substep on the CPU
               (plain versions, float32; float64 sets how far apart two
               float32 runs may be)
-  5. kernels  each kernel against its plain PyTorch version on the card,
-              at the main path's shapes: (a) inputs captured from the
-              main path's final state, (b) random inputs; times of both
-  6. the kernel table as JSON, the card line, and the result line
+  5. kernels  solve_rows against its plain version on the card, at the
+              main path's shapes: (a) inputs captured from the main path's
+              final state, (b) random inputs; times of both
+  6. stages   the stage split of the same solve on phase 5's fly inputs:
+              upsolve_build_yd, upsolve_yd (on J^T of the same rows, held
+              against upsolve_build_yd) and apgd_iterate (its f held
+              against solve_rows' f) against their plain versions, and
+              solve_fused(_stage="yd" / "apgd") launching them
+  7. solvers  contact_solver "apgd" and "admm": one substep of 4 envs on
+              the card against the CPU as in phase 4, each solver's qacc
+              distance from an 800-iteration float64 APGD solve; then
+              wob-admm (contact_solver "admm_kernel", budgets cut so the
+              dense system has 226 rows) at B=4096 for 2 control steps
+              with the admm_iterate kernel launched 10 times per control
+              step, and that kernel against its plain version env by env,
+              after 1 and after 20 iterations
+  8. the kernel table as JSON, the card line, and the result line
 """
 
 from __future__ import annotations
@@ -31,28 +45,29 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 4096
 STEPS = 20
+ADMM_STEPS = 2
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-# Tolerances of the kernel against its plain version, float32 on both.
-# f, v, qfrc, dqacc: max |kernel - plain| / max |plain| <= 1e-3. Both run
-# the same arithmetic in another summation order (~1e-6 relative for sums
-# of <= 152 terms); a restart test sum(g (z_new - z)) near zero can flip
-# in a few envs and change one Nesterov step there, which moves f by a
-# fraction of one step, well under 1e-3 of the batch's force scale.
+# Tolerances of a kernel against its plain version, float32 on both.
+# Every output: max |kernel - plain| / max |plain| <= 1e-3. Both run the
+# same arithmetic in another summation order (~1e-6 relative for sums of
+# <= 152 terms); a restart test sum(g (z_new - z)) near zero can flip in a
+# few envs and change one Nesterov step there, which moves f by a fraction
+# of one step, well under 1e-3 of the batch's force scale.
 TOL_MAX_REL = 1e-3
 # qacc = qacc_smooth + dqacc by the relative norm over the batch, as the
 # JAX package's fused-solver test compares qacc (test_solver_fused.py:58);
 # the same reasoning on the aggregate.
 TOL_QACC = 1e-4
-# One substep of the main path on the card (float32, kernel) against the
-# same substep on the CPU (float32, plain versions) from the same state,
+# One substep of 4 envs on the card (float32, kernels) against the same
+# substep on the CPU (float32, plain versions) from the same state,
 # relative norm over the 4 envs. The two runs round in another order
 # through an ill-conditioned contact state (small fly masses, stiff
-# contacts, 20 APGD iterations), so they can be as far apart as float32
+# contacts, 20 solver iterations), so they can be as far apart as float32
 # is from float64: on the card that distance read up to 1.6e-2 for qacc
 # and 3.9e-3 for qvel, 4e-4 for qpos and sensordata, over five runs of
 # the main path's final state on an H100. qacc and qvel are held at about
@@ -65,6 +80,21 @@ TOL_SUBSTEP = {"qacc": 5e-2, "qvel": 1e-2, "qpos": 1e-3,
 # the plain float32 result's distance from the plain float64 result,
 # measured on this run's inputs. A wrong kernel or stage is off by O(1).
 F64_FACTOR = 2.0
+
+# admm_iterate against its plain version, every env on its own scale
+# (max |z| of the env). The plain version takes the kernel's roundings in
+# the kernel's order (admm_kernel.admm_iterate_reference), so the two
+# agree bit for bit unless the card rounds an operation otherwise. No
+# float64 raise: any other order of the float32 sums moves a bf16 rhs
+# entry across a rounding boundary in some envs and 20 over-relaxed
+# iterations carry that to ~1e-2 of the env's scale, so a bound that
+# admitted it would admit a wrong kernel too.
+TOL_ADMM_ENV = 1e-4
+
+ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
+            "dinv", "qacc_smooth", "qvel", "kcoef", "bcoef", "posr")
+UP_ARGS = ROW_ARGS[7:]
+APGD_ARGS = ("rreg", "active", "mu", "f0", "v0")
 
 
 def fail(msg: str) -> None:
@@ -110,31 +140,66 @@ def rel_norm(a, b) -> float:
             / torch.linalg.vector_norm(b)).item()
 
 
-def compare(label, got, want, want64, qacc_smooth):
-    """Errors of the kernel's (f, v, qfrc, dqacc) and qacc against the
-    plain float32 version; each bound is raised to F64_FACTOR times the
-    plain float32 version's distance from the plain float64 version
-    (``want64``). Fails over a bound; returns the largest abs error."""
+def hold(label, names, got, want, want64, tol=TOL_MAX_REL, rel32=None):
+    """Each output of ``got`` against ``want`` by max_rel, the bound
+    ``tol`` raised to F64_FACTOR times the distance of the plain float32
+    result from the plain float64 result ``want64`` (or ``rel32`` where
+    given). Fails over a bound; returns the largest abs error."""
     worst = 0.0
-    for name, g, w, w64 in zip(("f", "v", "qfrc", "dqacc"), got, want,
-                               want64):
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
         err = (g - w).abs().max().item()
-        rel, rel32 = max_rel(g, w), max_rel(w, w64)
-        tol = max(TOL_MAX_REL, F64_FACTOR * rel32)
+        rel = max_rel(g, w)
+        r32 = rel32[i] if rel32 is not None else max_rel(w, want64[i])
+        bound = max(tol, F64_FACTOR * r32)
         worst = max(worst, err)
         print(f"  {label} {name:6s} max_abs {err:.3e} max_rel {rel:.3e} "
-              f"(plain f32 vs f64 {rel32:.3e}; tol {tol:.3g})", flush=True)
-        if not rel <= tol:
-            fail(f"{label} {name}: max_rel {rel:.3e} > {tol:.3g}")
-    q64 = qacc_smooth.double() + want64[3]
-    qp = qacc_smooth + want[3]
-    rel, rel32 = rel_norm(qacc_smooth + got[3], qp), rel_norm(qp, q64)
-    tol = max(TOL_QACC, F64_FACTOR * rel32)
-    print(f"  {label} qacc   rel_norm {rel:.3e} (plain f32 vs f64 "
-          f"{rel32:.3e}; tol {tol:.3g})", flush=True)
-    if not rel <= tol:
-        fail(f"{label} qacc rel_norm {rel:.3e} > {tol:.3g}")
+              f"(plain f32 vs f64 {r32:.3e}; tol {bound:.3g})", flush=True)
+        if not rel <= bound:
+            fail(f"{label} {name}: max_rel {rel:.3e} > {bound:.3g}")
     return worst
+
+
+def hold_envs(label, got, want, tol):
+    """``got`` against ``want`` (rows, B) env by env: each env's
+    max |got - want| over its own max |want|. Fails if any env is over
+    ``tol``; returns the largest abs error."""
+    diff = (got.double() - want.double()).abs().amax(dim=0)
+    rel = diff / want.double().abs().amax(dim=0).clamp_min(1e-30)
+    n_over = int((rel > tol).sum())
+    print(f"  {label}: max_abs {diff.max().item():.3e}, largest env max_rel "
+          f"{rel.max().item():.3e} (tol {tol:.0e}); envs that differ at all "
+          f"{int((diff > 0).sum())}, over tol {n_over} of {diff.numel()}",
+          flush=True)
+    if n_over:
+        fail(f"{label}: {n_over} envs over {tol:.0e} of their own scale")
+    return diff.max().item()
+
+
+def as64(x):
+    return x.double() if x is not None and x.is_floating_point() else x
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors
+               if x is not None)
+
+
+def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, flops,
+               moved, library_ms=None) -> dict:
+    """One entry of the kernels line; bound_ms from this run's inputs."""
+    t_ops, t_bytes = flops / PEAK_F32, moved / PEAK_BYTES
+    row = {"name": name, "route": "cuda",
+           "source": f"flybody_tpu_torch/csrc/{source}",
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library_ms}
+    print(f"kernel: {name} B={B} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+          f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB), launches "
+          f"{launches}", flush=True)
+    return row
 
 
 def main() -> int:
@@ -151,16 +216,39 @@ def main() -> int:
         return 1
     import numpy as np
     from flybody_tpu_torch.fly_envs import walk_on_ball
+    from flybody_tpu_torch.ops import admm_kernel as AK
     from flybody_tpu_torch.ops import solver_kernels as SK
     from flybody_tpu_torch.ops import tree_ldl as TL
     from flybody_tpu_torch.physics import bridge
+    from flybody_tpu_torch.physics import constraint as C
     from flybody_tpu_torch.physics import forward as F
+    from flybody_tpu_torch.physics import solver_dense as SD
     from flybody_tpu_torch.physics import solver_fused as SF
-    from flybody_tpu_torch.tasks.walk_on_ball import make_walk_on_ball
+    from flybody_tpu_torch.envs.core import FlyEnv
+    from flybody_tpu_torch.envs.walker import FlyWalker
+    from flybody_tpu_torch.physics import io_mj
+    from flybody_tpu_torch.tasks import walk_on_ball as WOB
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+    # every kernel wrapper of the port, by kernel name
+    wrappers = {"solve_rows": SK.solve_rows,
+                "apgd_iterate": SK.apgd_iterate,
+                "upsolve_build_yd": SK.upsolve_build_yd,
+                "upsolve_yd": SK.upsolve_yd,
+                "admm_iterate": AK.admm_iterate}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts() -> dict:
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def with_solver(model, solver):
+        return model.replace(opt=model.opt.replace(contact_solver=solver))
 
     # ---- 1. device -------------------------------------------------------
     smi = card_line()
@@ -181,7 +269,7 @@ def main() -> int:
     # ---- 3. main path ----------------------------------------------------
     env = walk_on_ball()
     lo, hi = env.action_spec()
-    mid = torch.as_tensor((lo + hi) / 2, dtype=torch.float32,
+    mid = torch.as_tensor((lo + hi) / 2, dtype=f32,
                           device=dev)[None].expand(B, -1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -190,20 +278,21 @@ def main() -> int:
     reset_s = time.perf_counter() - t0
     state = env.autoreset_step(state, mid)            # warm-up
     torch.cuda.synchronize()
-    SK.solve_rows.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for _ in range(STEPS):
         state = env.autoreset_step(state, mid)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = SK.solve_rows.launches
+    launched = counts()
     sps = B * STEPS / dt
     print(f"main: walk_on_ball B={B} reset {reset_s:.3f} s, {STEPS} "
           f"control steps in {dt:.3f} s = {sps:.1f} env-steps/s "
           f"({1e3 * dt / STEPS:.1f} ms per control step)", flush=True)
-    print(f"main: solve_rows launches {launches} (expected "
-          f"{STEPS * env.n_substeps})", flush=True)
-    if launches != STEPS * env.n_substeps:
+    print(f"main: launches {launched} (expected solve_rows "
+          f"{STEPS * env.n_substeps}, the others 0)", flush=True)
+    if launched != dict({k: 0 for k in wrappers},
+                        solve_rows=STEPS * env.n_substeps):
         fail("solve_rows was not launched once per substep")
     for k, v in state.obs.items():
         if not bool(torch.isfinite(v).all()):
@@ -221,81 +310,263 @@ def main() -> int:
     small = {k: ({kk: vv[..., :4] for kk, vv in v.items()}
                  if isinstance(v, dict) else v[..., :4])
              for k, v in small.items()}
-    out = F.step(m, bridge.data_from_numpy(small, m))
-    ref = {}
-    for dtype in (torch.float32, torch.float64):
-        cpu = make_walk_on_ball("cpu", dtype=dtype).model
-        ref[dtype] = F.step(cpu, bridge.data_from_numpy(small, cpu))
-    for name in ("qacc", "qvel", "qpos", "sensordata"):
-        c32 = getattr(out, name).cpu()
-        r32 = getattr(ref[torch.float32], name)
-        r64 = getattr(ref[torch.float64], name)
-        rel, rel32 = rel_norm(c32, r32), rel_norm(r32, r64)
-        tol = max(TOL_SUBSTEP[name], F64_FACTOR * rel32)
-        print(f"check: substep {name:10s} card f32 vs cpu f32 rel_norm "
-              f"{rel:.3e} (cpu f32 vs f64 {rel32:.3e}; card f32 vs f64 "
-              f"{rel_norm(c32, r64):.3e}; tol {tol:.3g})", flush=True)
-        if not rel <= tol:
-            fail(f"substep {name} rel_norm {rel:.3e} > {tol:.3g}")
+    cpu = {dt_: WOB.make_walk_on_ball("cpu", dtype=dt_).model
+           for dt_ in (f32, f64)}
 
-    # ---- 5. kernel against its plain version -----------------------------
+    def substep_check(label, model_card, solver):
+        """One substep of the 4 small envs on the card against the CPU in
+        float32 (bounds raised by the CPU's float32-to-float64 distance).
+        Returns the card's Data."""
+        mc = with_solver(model_card, solver)
+        out = F.step(mc, bridge.data_from_numpy(small, mc))
+        ref = {}
+        for dt_, mm in cpu.items():
+            mm = with_solver(mm, solver)
+            ref[dt_] = F.step(mm, bridge.data_from_numpy(small, mm))
+        for name in ("qacc", "qvel", "qpos", "sensordata"):
+            c32 = getattr(out, name).cpu()
+            r32, r64 = getattr(ref[f32], name), getattr(ref[f64], name)
+            rel, rel32 = rel_norm(c32, r32), rel_norm(r32, r64)
+            bound = max(TOL_SUBSTEP[name], F64_FACTOR * rel32)
+            print(f"{label}: substep {name:10s} card f32 vs cpu f32 "
+                  f"rel_norm {rel:.3e} (cpu f32 vs f64 {rel32:.3e}; card "
+                  f"f32 vs f64 {rel_norm(c32, r64):.3e}; tol {bound:.3g})",
+                  flush=True)
+            if not rel <= bound:
+                fail(f"{label} substep {name} rel_norm {rel:.3e} > "
+                     f"{bound:.3g}")
+        return out
+
+    fused_out = substep_check("check", m, "fused")
+
+    # ---- 5. solve_rows against its plain version -------------------------
     d = F.smooth_forward(m, state.data)
     prob = SF.assemble(m, d)
     fly_args, kw = prob["args"], prob["kw"]
+    fly64 = {k: as64(x) for k, x in fly_args.items()}
 
     p = SK.random_rows_problem(B, seed=0)
     tree_r = TL.build_tree_meta(p["parent"])
-    ld, dinv = TL.factor(tree_r, torch.as_tensor(
-        p["Ms"], dtype=torch.float32, device=dev))
+    ld, dinv = TL.factor(tree_r, torch.as_tensor(p["Ms"], dtype=f32,
+                                                 device=dev))
     rnd_args = {k: torch.as_tensor(p[k], device=dev).to(
-        torch.int32 if p[k].dtype == np.int32 else torch.float32)
+        torch.int32 if p[k].dtype == np.int32 else f32)
         for k in fly_args if k not in ("ld", "dinv")}
     rnd_args.update(ld=ld, dinv=dinv)
     rnd_kw = dict(kl=32, kc=40, iterations=20, noslip_iterations=3,
                   power_iters=4)
 
-    row = None
+    rows = {}
+    b1_f = None
+    R = fly_args["u6"].shape[0]
+    n_up, n_down = len(TL.flat_up(m.tree)), len(TL.flat_down(m.tree))
     for label, tree, args, kwa in (("fly", m.tree, fly_args, kw),
                                    ("random", tree_r, rnd_args, rnd_kw)):
         n0 = SK.solve_rows.launches
         got = SK.solve_rows(tree, **args, **kwa)
         want = SK.solve_rows_reference(tree, **args, **kwa)
         want64 = SK.solve_rows_reference(
-            tree, **{k: x.double() if x is not None and x.is_floating_point()
-                     else x for k, x in args.items()}, **kwa)
+            tree, **{k: as64(x) for k, x in args.items()}, **kwa)
         torch.cuda.synchronize()
         if SK.solve_rows.launches != n0 + 1:
             fail("the kernel wrapper did not launch")
-        err = compare(label, got, want, want64, args["qacc_smooth"])
+        err = hold(label, ("f", "v", "qfrc", "dqacc"), got, want, want64)
+        qs = args["qacc_smooth"]
+        qp, q64 = qs + want[3], qs.double() + want64[3]
+        rel, rel32 = rel_norm(qs + got[3], qp), rel_norm(qp, q64)
+        bound = max(TOL_QACC, F64_FACTOR * rel32)
+        print(f"  {label} qacc   rel_norm {rel:.3e} (plain f32 vs f64 "
+              f"{rel32:.3e}; tol {bound:.3g})", flush=True)
+        if not rel <= bound:
+            fail(f"{label} qacc rel_norm {rel:.3e} > {bound:.3g}")
         k_ms = cuda_ms(lambda: SK.solve_rows(tree, **args, **kwa), 20)
         p_ms = cuda_ms(lambda: SK.solve_rows_reference(tree, **args, **kwa),
                        3)
-        R = args["u6"].shape[0]
-        flops = SK.solve_rows_work(m.nv, R, B, len(TL.flat_up(tree)),
-                                   len(TL.flat_down(tree)),
+        print(f"kernel: solve_rows {label} kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms", flush=True)
+        if label == "fly":
+            b1_f = got[0]
+            # library_ms None: no single PyTorch call computes the solve
+            rows["solve_rows"] = kernel_row(
+                "solve_rows", "solve_rows.cu",
+                "flybody_tpu/ops/solver_kernels.py:556",
+                launched["solve_rows"], err, k_ms, p_ms,
+                SK.solve_rows_work(m.nv, R, B, n_up, n_down,
                                    kwa["iterations"],
                                    kwa["noslip_iterations"],
-                                   kwa["power_iters"])
-        nbytes = (sum(x.numel() * x.element_size()
-                      for x in args.values() if x is not None)
-                  + sum(x.numel() * x.element_size() for x in got))
-        bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
-        print(f"kernel: solve_rows {label} B={B} kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms, bound {bound:.4f} ms "
-              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
-              flush=True)
-        if label == "fly":
-            row = {"name": "solve_rows", "route": "cuda",
-                   "source": "flybody_tpu_torch/csrc/solve_rows.cu",
-                   "replaces": "flybody_tpu/ops/solver_kernels.py:556",
-                   "launches": launches, "max_abs_err": err,
-                   "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                   "bound_by": ("operations" if flops / PEAK_F32
-                                >= nbytes / PEAK_BYTES else "bytes"),
-                   "library_ms": None}
+                                   kwa["power_iters"]),
+                nbytes(*args.values(), *got))
 
-    # ---- 6. result -------------------------------------------------------
-    print(json.dumps({"kernels": [row]}), flush=True)
+    # ---- 6. the stage split on the fly inputs ----------------------------
+    tree = m.tree
+    row_in = [fly_args[k] for k in ROW_ARGS]
+    up_in = [fly_args[k] for k in UP_ARGS]
+    apgd_in = [fly_args[k] for k in APGD_ARGS]
+    apgd64 = [fly64[k] for k in APGD_ARGS]
+
+    # upsolve_build_yd
+    got3 = SK.upsolve_build_yd(tree, *row_in)
+    want3 = SK.upsolve_build_yd_reference(tree, *row_in)
+    want3_64 = SK.upsolve_build_yd_reference(
+        tree, *(fly64[k] for k in ROW_ARGS))
+    torch.cuda.synchronize()
+    err3 = hold("upsolve_build_yd", ("yd", "b"), got3, want3, want3_64)
+    rel32_3 = [max_rel(w, w64) for w, w64 in zip(want3, want3_64)]
+
+    # upsolve_yd: the up-solve of J^T of the same rows, driven alone (its
+    # one use is a J^T built beforehand), held against upsolve_build_yd
+    jt = SK.build_jt_reference(*row_in[:7]).contiguous()
+    zero_counts()
+    got4 = SK.upsolve_yd(tree, jt, *up_in)
+    torch.cuda.synchronize()
+    launched4 = counts()
+    if launched4 != dict({k: 0 for k in wrappers}, upsolve_yd=1):
+        fail(f"upsolve_yd path launches {launched4}")
+    err4 = hold("upsolve_yd vs upsolve_build_yd", ("yd", "b"), got4, got3,
+                None, rel32=rel32_3)
+
+    # apgd_iterate on upsolve_build_yd's Yd: f as solve_rows' f
+    yd, bvec = got3
+    got2 = SK.apgd_iterate(yd, bvec, *apgd_in, **kw)
+    want2 = SK.apgd_iterate_reference(yd, bvec, *apgd_in, **kw)
+    want2_64 = SK.apgd_iterate_reference(yd.double(), bvec.double(),
+                                         *apgd64, **kw)
+    torch.cuda.synchronize()
+    rel32_2 = [max_rel(w, w64) for w, w64 in zip(want2, want2_64)]
+    err2 = hold("apgd_iterate vs solve_rows", ("f",), got2[:1], (b1_f,),
+                None, rel32=rel32_2[:1])
+    err2 = max(err2, hold("apgd_iterate", ("f", "ystar", "v"), got2, want2,
+                          want2_64))
+
+    # solve_fused's stage split launches them
+    stage_launches = {k: 0 for k in wrappers}
+    for stage, expect in (("yd", {"upsolve_build_yd": 1}),
+                          ("apgd", {"upsolve_build_yd": 1,
+                                    "apgd_iterate": 1})):
+        zero_counts()
+        out = SF.solve_fused(m, d, _stage=stage)
+        torch.cuda.synchronize()
+        launched_s = counts()
+        print(f"stages: solve_fused(_stage={stage!r}) launches "
+              f"{launched_s}", flush=True)
+        if launched_s != dict({k: 0 for k in wrappers}, **expect):
+            fail(f"solve_fused(_stage={stage!r}) launches {launched_s}")
+        if not torch.equal(out.qacc, d.qacc_smooth):
+            fail(f"solve_fused(_stage={stage!r}): probe not finite")
+        for k, v in launched_s.items():
+            stage_launches[k] += v
+
+    yd_bytes = nbytes(*got3)
+    flops3 = SK.upsolve_yd_work(m.nv, R, B, n_up, build=True)
+    flops4 = SK.upsolve_yd_work(m.nv, R, B, n_up, build=False)
+    flops2 = SK.apgd_iterate_work(m.nv, R, B, kw["iterations"],
+                                  kw["noslip_iterations"],
+                                  kw["power_iters"])
+    # library_ms None for the three: no single PyTorch call computes the
+    # J build + tree up-solve + rhs, the sparse up-solve + rhs, or APGD
+    rows["upsolve_build_yd"] = kernel_row(
+        "upsolve_build_yd", "solve_rows.cu",
+        "flybody_tpu/ops/solver_kernels.py:218",
+        stage_launches["upsolve_build_yd"], err3,
+        cuda_ms(lambda: SK.upsolve_build_yd(tree, *row_in), 20),
+        cuda_ms(lambda: SK.upsolve_build_yd_reference(tree, *row_in), 3),
+        flops3, nbytes(*row_in) + yd_bytes)
+    rows["upsolve_yd"] = kernel_row(
+        "upsolve_yd", "solve_rows.cu",
+        "flybody_tpu/ops/solver_kernels.py:84", launched4["upsolve_yd"],
+        err4, cuda_ms(lambda: SK.upsolve_yd(tree, jt, *up_in), 20),
+        cuda_ms(lambda: SK.upsolve_yd_reference(tree, jt, *up_in), 3),
+        flops4, nbytes(jt, *up_in) + yd_bytes)
+    rows["apgd_iterate"] = kernel_row(
+        "apgd_iterate", "solve_rows.cu",
+        "flybody_tpu/ops/solver_kernels.py:410",
+        stage_launches["apgd_iterate"], err2,
+        cuda_ms(lambda: SK.apgd_iterate(yd, bvec, *apgd_in, **kw), 20),
+        cuda_ms(lambda: SK.apgd_iterate_reference(yd, bvec, *apgd_in,
+                                                  **kw), 3),
+        flops2, nbytes(yd, bvec, *apgd_in, *got2))
+    del jt, got3, got4, want3, want3_64, yd, bvec
+
+    # ---- 7. the other contact solvers ------------------------------------
+    cpu64 = with_solver(cpu[f64], "apgd")
+    d64 = F.smooth_forward(cpu64, bridge.data_from_numpy(small, cpu64))
+    qref = C.solve(cpu64, d64, iterations=800).qacc
+    print(f"solvers: fused qacc vs 800-iteration apgd (cpu f64) rel_norm "
+          f"{rel_norm(fused_out.qacc.cpu(), qref):.3e}", flush=True)
+    for solver in ("apgd", "admm"):
+        zero_counts()
+        out = substep_check(f"solvers {solver}", m, solver)
+        print(f"solvers: {solver} qacc vs 800-iteration apgd (cpu f64) "
+              f"rel_norm {rel_norm(out.qacc.cpu(), qref):.3e}; launches "
+              f"{counts()}", flush=True)
+    lim, groups = C.make_efc(cpu64, d64)
+    n_dense = (min(len(lim.dadr), SD.LIMIT_ACTIVE)
+               + sum(min(g.condim, 3) * g.K for g in groups))
+    print(f"solvers: the dense system at the shipped budgets has {n_dense} "
+          f"rows (> {SD.KERNEL_MAX_ROWS}: admm_kernel runs the plain loop)",
+          flush=True)
+
+    # wob-admm: walk_on_ball's model put with its budgets overridden
+    mj = WOB.load_model()
+    ma = io_mj.put_model(mj, device=dev, dtype=f32,
+                         **{**WOB.PUT_MODEL_KW, **WOB.WOB_ADMM_KW})
+    walker = FlyWalker(ma, json.loads(str(mj["action_maps_json"])))
+    env_a = FlyEnv(ma, WOB.WalkOnBall(walker), dtype=f32)
+    state_a = env_a.reset(B)
+    state_a = env_a.autoreset_step(state_a, mid)       # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(ADMM_STEPS):
+        state_a = env_a.autoreset_step(state_a, mid)
+    torch.cuda.synchronize()
+    dt_a = time.perf_counter() - t0
+    launched_a = counts()
+    print(f"wob-admm: B={B} {ADMM_STEPS} control steps in {dt_a:.3f} s = "
+          f"{B * ADMM_STEPS / dt_a:.1f} env-steps/s; launches {launched_a}",
+          flush=True)
+    if launched_a != dict({k: 0 for k in wrappers},
+                          admm_iterate=ADMM_STEPS * env_a.n_substeps):
+        fail("admm_iterate was not launched once per substep")
+    for k, v in state_a.obs.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"wob-admm obs {k} not finite")
+    if not bool(torch.isfinite(state_a.reward).all()):
+        fail("wob-admm reward not finite")
+
+    # admm_iterate against its plain version on the inputs of the next
+    # (update) substep of the final state
+    da = F.smooth_forward(ma, state_a.data, col_update=True)
+    lim, groups = C.make_efc(ma, da)
+    sysd = SD.dense_system(ma, da, lim, groups)
+    n_rows = sysd["b"].shape[0]
+    use, kl, kc, mu = SD.kernel_layout(sysd["ls"], groups, n_rows)
+    if not (use and n_rows == 226):
+        fail(f"wob-admm: {n_rows} rows, kernel layout {use}")
+    akw = dict(kl=kl, kc=kc, iterations=20)
+    a_in = (SD.inverse_operator(sysd["fac"]), sysd["bs"].contiguous(),
+            sysd["z0"].contiguous(), mu.contiguous(),
+            sysd["active"].contiguous())
+    for its in (1, akw["iterations"]):
+        kwi = dict(akw, iterations=its)
+        got5 = AK.admm_iterate(*a_in, **kwi)
+        want5 = AK.admm_iterate_reference(*a_in, **kwi)
+        torch.cuda.synchronize()
+        err5 = hold_envs(f"admm_iterate {its:2d} iterations", got5, want5,
+                         TOL_ADMM_ENV)
+    # library_ms None: no single PyTorch call runs the projected iteration
+    rows["admm_iterate"] = kernel_row(
+        "admm_iterate", "admm_iterate.cu",
+        "flybody_tpu/ops/admm_kernel.py:94", launched_a["admm_iterate"],
+        err5, cuda_ms(lambda: AK.admm_iterate(*a_in, **akw), 20),
+        cuda_ms(lambda: AK.admm_iterate_reference(*a_in, **akw), 3),
+        AK.admm_work(n_rows, B, akw["iterations"]),
+        nbytes(*a_in, got5))
+
+    # ---- 8. result -------------------------------------------------------
+    order = ("solve_rows", "apgd_iterate", "upsolve_build_yd", "upsolve_yd",
+             "admm_iterate")
+    print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

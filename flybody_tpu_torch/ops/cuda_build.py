@@ -6,10 +6,11 @@ interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 The library lands in ``flybody_tpu_torch/_build/`` under a name that
-carries a hash of the source, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is built at import time: a kernel's
-wrapper calls ``load`` on its first launch, and ``build_all`` builds every
-source at once (one nvcc process per source, all started together).
+carries a hash of the source and of every ``csrc/*.cuh`` header, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing is built at import time: a kernel's wrapper calls ``load`` on its
+first launch, and ``build_all`` builds every source at once (one nvcc
+process per source, all started together).
 """
 
 from __future__ import annotations
@@ -43,9 +44,15 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Library path of ``csrc/<name>.cu``: the name carries a hash of the
+    source and of every header in ``csrc/`` (any of them may be included)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        h.update(fname.encode())
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _command(nvcc: str, name: str, out: str) -> list[str]:
@@ -100,5 +107,6 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def error_string(code: int, name: str = "solve_rows") -> str:
+def error_string(code: int, name: str) -> str:
+    """CUDA's message for ``code``, asked of the library ``name``."""
     return load(name).fb_cuda_error_string(code).decode()

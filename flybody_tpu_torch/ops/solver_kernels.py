@@ -1,20 +1,27 @@
-"""The fused dual contact solve ``solve_rows``: a CUDA kernel and its plain
-PyTorch version.
+"""The fused dual contact solve ``solve_rows`` and its three stage
+kernels: CUDA kernels and their plain PyTorch versions.
 
 A = J M^-1 J^T = Yd^T Yd with Yd = D^{-1/2} L^{-T} J^T from the sparse
-kinematic-tree LDL^T factor (ops/tree_ldl). One call builds J^T from the
-compact row form, runs the triangular up-solve, the APGD loop with its
-noslip pass, and the two output tree sweeps:
+kinematic-tree LDL^T factor (ops/tree_ldl). One ``solve_rows`` call builds
+J^T from the compact row form, runs the triangular up-solve, the APGD loop
+with its noslip pass, and the two output tree sweeps:
 
     f, v, qfrc, dqacc = solve_rows(tree, d6, u6, ...)
     qacc = qacc_smooth + dqacc
 
+The stage split of the same solve (``solver_fused.solve_fused(_stage=)``)
+materializes Yd in device memory between two kernels:
+
+    yd, b = upsolve_build_yd(tree, d6, u6, ...)     # J build + up-solve
+    yd, b = upsolve_yd(tree, jt, ...)               # up-solve of a given J^T
+    f, ystar, v = apgd_iterate(yd, b, rreg, ...)    # APGD + noslip, Yd f
+
 Row layout (static): [ kl nonneg rows (limits + condim-1 contacts, padded)
 | kc cone NORMAL rows | kc cone TANGENT-1 rows | kc cone TANGENT-2 rows ].
 
-``solve_rows`` takes CUDA tensors to the kernel in ``csrc/solve_rows.cu``
-and CPU tensors to ``solve_rows_reference``; nothing else chooses between
-them. ``solve_rows.launches`` counts kernel launches.
+Each wrapper takes CUDA tensors to its kernel in ``csrc/solve_rows.cu``
+and CPU tensors to its ``*_reference``; nothing else chooses between them.
+Each wrapper's ``.launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -156,6 +163,30 @@ def _apgd_math(yd, b, rreg, act, mu, f0, v0, *, kl, kc, iterations,
     return f, mv_y(f), v_out
 
 
+def upsolve_build_yd_reference(tree, d6, u6, b1, b2, lim_sign, lim_dadr,
+                               maskd, ld, dinv, qacc_smooth, qvel, kcoef,
+                               bcoef, posr):
+    """Plain PyTorch version of ``upsolve_build_yd``: the J build, then
+    ``upsolve_yd_reference``."""
+    maskd = torch.as_tensor(maskd, device=d6.device)
+    jt = build_jt_reference(d6, u6, b1, b2, lim_sign, lim_dadr, maskd)
+    return upsolve_yd_reference(tree, jt, ld, dinv, qacc_smooth, qvel,
+                                kcoef, bcoef, posr)
+
+
+def apgd_iterate_reference(yd, b, rreg, active, mu, f0, v0=None, *,
+                           kl: int, kc: int, iterations: int,
+                           noslip_iterations: int = 0,
+                           power_iters: int = 4):
+    """Plain PyTorch version of ``apgd_iterate``."""
+    if v0 is None:
+        v0 = active
+    return _apgd_math(yd, b, rreg, active, mu, f0, v0, kl=kl, kc=kc,
+                      iterations=iterations,
+                      noslip_iterations=noslip_iterations,
+                      power_iters=power_iters)
+
+
 def solve_rows_reference(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
                          ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr,
                          rreg, active, mu, f0, v0=None, *, kl: int, kc: int,
@@ -165,10 +196,9 @@ def solve_rows_reference(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
     then ``tree_ldl.mul_lt`` and ``tree_ldl.solve_down`` for the outputs."""
     if v0 is None:
         v0 = active
-    maskd = torch.as_tensor(maskd, device=d6.device)
-    jt = build_jt_reference(d6, u6, b1, b2, lim_sign, lim_dadr, maskd)
-    yd, bvec = upsolve_yd_reference(tree, jt, ld, dinv, qacc_smooth, qvel,
-                                    kcoef, bcoef, posr)
+    yd, bvec = upsolve_build_yd_reference(
+        tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd, ld, dinv,
+        qacc_smooth, qvel, kcoef, bcoef, posr)
     f, ystar, v = _apgd_math(yd, bvec, rreg, active, mu, f0, v0,
                              kl=kl, kc=kc, iterations=iterations,
                              noslip_iterations=noslip_iterations,
@@ -191,6 +221,24 @@ def solve_rows_work(nv: int, R: int, B: int, n_up: int, n_down: int,
     per_env = (nv * R * (15 + 4 + 3 + 2 + 4 * napply) + 2 * n_up * R
                + 2 * (n_up + n_down))
     return float(per_env) * B
+
+
+def upsolve_yd_work(nv: int, R: int, B: int, n_up: int,
+                    build: bool) -> float:
+    """Floating-point operations of one ``upsolve_build_yd`` (build=True:
+    J build 15 nv R) or ``upsolve_yd`` call: rhs 4 nv R, up-solve
+    2 n_up R, D^{-1/2} scaling nv R."""
+    per_env = nv * R * ((15 if build else 0) + 4 + 1) + 2 * n_up * R
+    return float(per_env) * B
+
+
+def apgd_iterate_work(nv: int, R: int, B: int, iterations: int,
+                      noslip_iterations: int, power_iters: int) -> float:
+    """Floating-point operations of one ``apgd_iterate`` call: diag 2 nv R,
+    one Yd^T Yd application 4 nv R per power / APGD / noslip iteration and
+    the output Yd f 2 nv R."""
+    napply = power_iters + iterations + 2 * noslip_iterations
+    return float(nv * R * (2 + 4 * napply + 2)) * B
 
 
 def random_rows_problem(B: int, seed: int = 0, nv: int = 105,
@@ -240,25 +288,40 @@ def random_rows_problem(B: int, seed: int = 0, nv: int = 105,
 
 
 # --------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # --------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LAUNCHER_ARGS = ([_P] * 19          # inputs
-                  + [_P] * 4         # outputs f, v, qfrc, dqacc
-                  + [_P, _P]         # up / down triplet tables
-                  + [_I] * 13        # sizes and iteration counts
-                  + [_P])            # stream
+_ARGTYPES = {
+    "solve_rows_launch": ([_P] * 19          # inputs
+                          + [_P] * 4         # outputs f, v, qfrc, dqacc
+                          + [_P, _P]         # up / down triplet tables
+                          + [_I] * 13        # sizes and iteration counts
+                          + [_P]),           # stream
+    "upsolve_launch": ([_I] + [_P] * 15      # build flag, inputs
+                       + [_P] * 2            # outputs yd, b
+                       + [_P]                # up triplet table
+                       + [_I] * 6            # sizes
+                       + [_P]),              # stream
+    "apgd_launch": ([_P] * 7 + [_P] * 3      # inputs, outputs f, ystar, v
+                    + [_I] * 9 + [_P]),      # sizes and counts, stream
+}
 
 
-def _lib():
-    lib = cuda_build.load("solve_rows")
-    fn = lib.solve_rows_launch
+def _launcher(name: str):
+    fn = getattr(cuda_build.load("solve_rows"), name)
     if fn.argtypes is None:
-        fn.argtypes = _LAUNCHER_ARGS
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(who: str, name: str, *args) -> None:
+    err = _launcher(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(err, 'solve_rows')})")
 
 
 def _triplets(tree, device):
@@ -272,30 +335,58 @@ def _triplets(tree, device):
     return t
 
 
-def _check(name, x, shape, dtype, device):
-    if x.device != device:
-        raise ValueError(f"solve_rows: {name} on {x.device}, expected "
-                         f"{device}")
-    if x.dtype != dtype:
-        raise TypeError(f"solve_rows: {name} is {x.dtype}, the kernel "
-                        f"takes {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"solve_rows: {name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"solve_rows: {name} is not contiguous")
+def check_args(who: str, checks, device) -> None:
+    """Raise unless every (name, tensor, shape, dtype) of ``checks`` lies
+    on ``device``, has that dtype and shape, and is contiguous."""
+    for name, x, shape, dtype in checks:
+        if x.device != device:
+            raise ValueError(f"{who}: {name} on {x.device}, expected "
+                             f"{device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{who}: {name} is {x.dtype}, the kernel takes "
+                            f"{dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{who}: {name} is not contiguous")
+
+
+def on_cpu(who: str, x: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    tensor (the kernel runs); any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {x.device}")
+    return False
 
 
 def smem_bytes(nv: int, R: int, nM: int, threads: int) -> int:
-    """Dynamic shared memory of one block, in bytes. Mirrors the kernel's
-    carve-up: Yd with an odd row stride, ld, d6 (6 nv), four dof vectors,
-    three row vectors and the reduction scratch."""
+    """Dynamic shared memory of one block, in bytes. Mirrors the kernels'
+    carve-up (``carve`` in csrc/solve_rows.cu): Yd with an odd row stride,
+    ld, d6 (6 nv), four dof vectors, three row vectors and the reduction
+    scratch."""
     stride = R | 1
     return 4 * (nv * stride + nM + 10 * nv + 3 * threads + 64)
 
 
 def block_threads(nv: int, R: int) -> int:
     return -(-max(nv, R) // 32) * 32
+
+
+def _row_checks(nv, R, B, nbody, nM, d6, u6, b1, b2, lim_sign, lim_dadr,
+                maskd, ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr):
+    f32, i32 = torch.float32, torch.int32
+    return [("d6", d6, (nv, 6, B), f32), ("u6", u6, (R, 6, B), f32),
+            ("b1", b1, (R, B), i32), ("b2", b2, (R, B), i32),
+            ("lim_sign", lim_sign, (R, B), f32),
+            ("lim_dadr", lim_dadr, (R, B), i32),
+            ("maskd", maskd, (nbody, nv), f32), ("ld", ld, (nM, B), f32),
+            ("dinv", dinv, (nv, B), f32),
+            ("qacc_smooth", qacc_smooth, (nv, B), f32),
+            ("qvel", qvel, (nv, B), f32), ("kcoef", kcoef, (R, B), f32),
+            ("bcoef", bcoef, (R, B), f32), ("posr", posr, (R, B), f32)]
 
 
 def solve_rows(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
@@ -310,15 +401,12 @@ def solve_rows(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
     kernel (float32, contiguous, batch-minor as given) or raise."""
     if v0 is None:
         v0 = active
-    if d6.device.type == "cpu":
+    if on_cpu("solve_rows", d6):
         return solve_rows_reference(
             tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd, ld, dinv,
             qacc_smooth, qvel, kcoef, bcoef, posr, rreg, active, mu, f0,
             v0, kl=kl, kc=kc, iterations=iterations,
             noslip_iterations=noslip_iterations, power_iters=power_iters)
-    if d6.device.type != "cuda":
-        raise ValueError(f"solve_rows: no kernel for device {d6.device}")
-
     nv = d6.shape[0]
     R, _, B = u6.shape
     nbody = maskd.shape[0]
@@ -326,42 +414,149 @@ def solve_rows(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
     if R != kl + 3 * kc:
         raise ValueError(f"solve_rows: R={R} != kl + 3 kc = {kl + 3 * kc}")
     dev = d6.device
-    f32, i32 = torch.float32, torch.int32
-    checks = (
-        ("d6", d6, (nv, 6, B), f32), ("u6", u6, (R, 6, B), f32),
-        ("b1", b1, (R, B), i32), ("b2", b2, (R, B), i32),
-        ("lim_sign", lim_sign, (R, B), f32),
-        ("lim_dadr", lim_dadr, (R, B), i32),
-        ("maskd", maskd, (nbody, nv), f32), ("ld", ld, (nM, B), f32),
-        ("dinv", dinv, (nv, B), f32), ("qacc_smooth", qacc_smooth, (nv, B),
-                                       f32),
-        ("qvel", qvel, (nv, B), f32), ("kcoef", kcoef, (R, B), f32),
-        ("bcoef", bcoef, (R, B), f32), ("posr", posr, (R, B), f32),
+    f32 = torch.float32
+    checks = _row_checks(nv, R, B, nbody, nM, d6, u6, b1, b2, lim_sign,
+                         lim_dadr, maskd, ld, dinv, qacc_smooth, qvel,
+                         kcoef, bcoef, posr) + [
         ("rreg", rreg, (R, B), f32), ("active", active, (R, B), f32),
         ("mu", mu, (max(kc, 1), B), f32), ("f0", f0, (R, B), f32),
-        ("v0", v0, (R, B), f32),
-    )
-    for name, x, shape, dtype in checks:
-        _check(name, x, shape, dtype, dev)
+        ("v0", v0, (R, B), f32)]
+    check_args("solve_rows", checks, dev)
     up, down = _triplets(tree, dev)
-    threads = block_threads(nv, R)
-    smem = smem_bytes(nv, R, nM, threads)
+    smem = smem_bytes(nv, R, nM, block_threads(nv, R))
     f = torch.empty((R, B), dtype=f32, device=dev)
     v = torch.empty((R, B), dtype=f32, device=dev)
     qfrc = torch.empty((nv, B), dtype=f32, device=dev)
     dqacc = torch.empty((nv, B), dtype=f32, device=dev)
-    ins = [x for _, x, _, _ in checks]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(*[x.data_ptr() for x in ins],
-                 f.data_ptr(), v.data_ptr(), qfrc.data_ptr(),
-                 dqacc.data_ptr(), up.data_ptr(), down.data_ptr(),
-                 nv, R, B, nbody, nM, kl, kc, up.shape[0], down.shape[0],
-                 iterations, noslip_iterations, power_iters, smem, stream)
-    if err != 0:
-        raise RuntimeError(f"solve_rows kernel launch failed: CUDA error "
-                           f"{err} ({cuda_build.error_string(err)})")
+    _launch("solve_rows", "solve_rows_launch",
+            *[x.data_ptr() for _, x, _, _ in checks],
+            f.data_ptr(), v.data_ptr(), qfrc.data_ptr(), dqacc.data_ptr(),
+            up.data_ptr(), down.data_ptr(), nv, R, B, nbody, nM, kl, kc,
+            up.shape[0], down.shape[0], iterations, noslip_iterations,
+            power_iters, smem, torch.cuda.current_stream(dev).cuda_stream)
     solve_rows.launches += 1
     return f, v, qfrc, dqacc
 
 
 solve_rows.launches = 0
+
+
+def _upsolve_launch(who, tree, build, jt, row_args, ld, dinv, qacc_smooth,
+                    qvel, kcoef, bcoef, posr, nv, R, B):
+    """Shared launch of upsolve_build_yd (build) and upsolve_yd."""
+    dev = ld.device
+    up, _ = _triplets(tree, dev)
+    nM = ld.shape[0]
+    yd = torch.empty((nv, R, B), dtype=torch.float32, device=dev)
+    b = torch.empty((R, B), dtype=torch.float32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    _launch(who, "upsolve_launch", int(build), ptr(jt),
+            *[ptr(x) for x in row_args], ld.data_ptr(), dinv.data_ptr(),
+            qacc_smooth.data_ptr(), qvel.data_ptr(), kcoef.data_ptr(),
+            bcoef.data_ptr(), posr.data_ptr(), yd.data_ptr(), b.data_ptr(),
+            up.data_ptr(), nv, R, B, nM, up.shape[0],
+            smem_bytes(nv, R, nM, block_threads(nv, R)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return yd, b
+
+
+def upsolve_build_yd(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
+                     ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr):
+    """J build + triangular up-solve: (yd (nv, R, B), b (R, B)), the
+    inputs and Yd of ``solve_rows`` with b = -bcoef (J qvel) - kcoef posr
+    - J qacc_smooth.
+
+    CPU tensors go to ``upsolve_build_yd_reference``. CUDA tensors launch
+    the kernel (float32, contiguous) or raise."""
+    if on_cpu("upsolve_build_yd", d6):
+        return upsolve_build_yd_reference(
+            tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd, ld, dinv,
+            qacc_smooth, qvel, kcoef, bcoef, posr)
+    nv = d6.shape[0]
+    R, _, B = u6.shape
+    checks = _row_checks(nv, R, B, maskd.shape[0], ld.shape[0], d6, u6, b1,
+                         b2, lim_sign, lim_dadr, maskd, ld, dinv,
+                         qacc_smooth, qvel, kcoef, bcoef, posr)
+    check_args("upsolve_build_yd", checks, d6.device)
+    out = _upsolve_launch("upsolve_build_yd", tree, True, None,
+                          (d6, u6, b1, b2, lim_sign, lim_dadr, maskd), ld,
+                          dinv, qacc_smooth, qvel, kcoef, bcoef, posr, nv, R,
+                          B)
+    upsolve_build_yd.launches += 1
+    return out
+
+
+upsolve_build_yd.launches = 0
+
+
+def upsolve_yd(tree, jt, ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr):
+    """Triangular up-solve of a given jt (nv, R, B): (yd (nv, R, B),
+    b (R, B)) with b = -bcoef (J qvel) - kcoef posr - J qacc_smooth.
+
+    CPU tensors go to ``upsolve_yd_reference``. CUDA tensors launch the
+    kernel (float32, contiguous) or raise."""
+    if on_cpu("upsolve_yd", jt):
+        return upsolve_yd_reference(tree, jt, ld, dinv, qacc_smooth, qvel,
+                                    kcoef, bcoef, posr)
+    nv, R, B = jt.shape
+    f32 = torch.float32
+    check_args("upsolve_yd", [
+        ("jt", jt, (nv, R, B), f32), ("ld", ld, (ld.shape[0], B), f32),
+        ("dinv", dinv, (nv, B), f32),
+        ("qacc_smooth", qacc_smooth, (nv, B), f32),
+        ("qvel", qvel, (nv, B), f32), ("kcoef", kcoef, (R, B), f32),
+        ("bcoef", bcoef, (R, B), f32), ("posr", posr, (R, B), f32)],
+        jt.device)
+    out = _upsolve_launch("upsolve_yd", tree, False, jt, (None,) * 7, ld,
+                          dinv, qacc_smooth, qvel, kcoef, bcoef, posr, nv, R,
+                          B)
+    upsolve_yd.launches += 1
+    return out
+
+
+upsolve_yd.launches = 0
+
+
+def apgd_iterate(yd, b, rreg, active, mu, f0, v0=None, *, kl: int, kc: int,
+                 iterations: int, noslip_iterations: int = 0,
+                 power_iters: int = 4):
+    """APGD + noslip on A = Yd^T Yd + diag(rreg) for a given yd (nv, R, B):
+    (f (R, B), ystar = Yd f (nv, B), v (R, B)). R = kl + 3 kc; v0 warm-
+    starts the power iteration (None: the active indicator).
+
+    CPU tensors go to ``apgd_iterate_reference``. CUDA tensors launch the
+    kernel (float32, contiguous) or raise."""
+    nv, R, B = yd.shape
+    if R != kl + 3 * kc:
+        raise ValueError(f"apgd_iterate: R={R} != kl + 3 kc = "
+                         f"{kl + 3 * kc}")
+    if v0 is None:
+        v0 = active
+    if on_cpu("apgd_iterate", yd):
+        return apgd_iterate_reference(
+            yd, b, rreg, active, mu, f0, v0, kl=kl, kc=kc,
+            iterations=iterations, noslip_iterations=noslip_iterations,
+            power_iters=power_iters)
+    dev = yd.device
+    f32 = torch.float32
+    checks = [("yd", yd, (nv, R, B), f32), ("b", b, (R, B), f32),
+              ("rreg", rreg, (R, B), f32), ("active", active, (R, B), f32),
+              ("mu", mu, (max(kc, 1), B), f32), ("f0", f0, (R, B), f32),
+              ("v0", v0, (R, B), f32)]
+    check_args("apgd_iterate", checks, dev)
+    if kc <= 0:
+        raise ValueError("apgd_iterate: the kernel needs kc > 0 cones")
+    f = torch.empty((R, B), dtype=f32, device=dev)
+    ystar = torch.empty((nv, B), dtype=f32, device=dev)
+    v = torch.empty((R, B), dtype=f32, device=dev)
+    _launch("apgd_iterate", "apgd_launch",
+            *[x.data_ptr() for _, x, _, _ in checks],
+            f.data_ptr(), ystar.data_ptr(), v.data_ptr(), nv, R, B, kl, kc,
+            iterations, noslip_iterations, power_iters,
+            smem_bytes(nv, R, 0, block_threads(nv, R)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    apgd_iterate.launches += 1
+    return f, ystar, v
+
+
+apgd_iterate.launches = 0

@@ -10,7 +10,8 @@ The soft-constraint dual QP of MuJoCo's model, in four parts:
    rows' sign * e_dadr), built for the selected rows only.
 3. The whole dual solve in one kernel (ops/solver_kernels.solve_rows): J
    build, up-solve Yd = D^{-1/2} L^{-T} J^T, APGD with its noslip pass and
-   the two output tree sweeps.
+   the two output tree sweeps. The profiling stage split (``_stage``) runs
+   the same solve as two kernels with Yd in device memory between them.
 4. Within a col_refresh window (fresh=False) the row selection persists
    (Data.sol_lim_sel / sol_cone_sel) and APGD warm-starts from the raw
    previous forces (Data.sol_f) with 2 power iterations instead of 3.
@@ -262,20 +263,57 @@ def assemble(m: Model, d: Data, iterations: int | None = None,
                 idx_cone=idx_cone, sel_c1=sel_c1, sel_cone=sel_cone)
 
 
+def _probe(d: Data, probe: torch.Tensor) -> Data:
+    """The smooth solution plus 0 * probe: a profiling stage's result
+    depends on what it computed, as in the JAX package."""
+    return d.replace(qacc=d.qacc_smooth + 0.0 * probe[None, :])
+
+
+_STAGES = ("assembly", "yd", "apgd", "full")
+
+
 def solve_fused(m: Model, d: Data, iterations: int | None = None,
-                fresh: bool = True) -> Data:
-    """constraint.solve for contact_solver='fused' (see module doc)."""
+                _stage: str = "full", fresh: bool = True) -> Data:
+    """constraint.solve for contact_solver='fused' (see module doc).
+
+    ``_stage`` is a profiling knob: "assembly" stops after the row
+    assembly, "yd" after the ``upsolve_build_yd`` kernel, "apgd" after the
+    ``apgd_iterate`` kernel (the two-kernel stage split of the same
+    solve); each returns the smooth qacc plus 0 * a probe of what it
+    computed. "full" (the default) is the production path: one
+    ``solve_rows`` kernel."""
+    if _stage not in _STAGES:
+        raise ValueError(f"_stage must be one of {_STAGES}, not {_stage!r}")
     prob = assemble(m, d, iterations=iterations, fresh=fresh)
     if prob is None:
         return d.replace(qacc=d.qacc_smooth,
                          qfrc_constraint=torch.zeros_like(d.qvel))
+    args, kw = prob["args"], prob["kw"]
+    if _stage == "assembly":
+        return _probe(d, torch.sum(args["u6"], dim=(0, 1))
+                      + torch.sum(args["kcoef"], dim=0)
+                      + torch.sum(args["f0"], dim=0)
+                      + torch.sum(args["active"], dim=0))
+    if _stage in ("yd", "apgd"):
+        yd, bvec = SK.upsolve_build_yd(
+            m.tree, *(args[k] for k in (
+                "d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd",
+                "ld", "dinv", "qacc_smooth", "qvel", "kcoef", "bcoef",
+                "posr")))
+        if _stage == "yd":
+            return _probe(d, torch.sum(yd, dim=(0, 1))
+                          + torch.sum(bvec, dim=0))
+        f, ystar, _ = SK.apgd_iterate(
+            yd, bvec, args["rreg"], args["active"], args["mu"], args["f0"],
+            args["v0"], **kw)
+        return _probe(d, torch.sum(f, dim=0) + torch.sum(ystar, dim=0))
+
     lay = prob["lay"]
     n_lim, k1, kl, kc, R = (lay["n_lim"], lay["k1"], lay["kl"], lay["kc"],
                             lay["R"])
     dtype = d.qpos.dtype
     B = d.qpos.shape[-1]
-    f, v_new, qfrc, dqacc = SK.solve_rows(m.tree, **prob["args"],
-                                          **prob["kw"])
+    f, v_new, qfrc, dqacc = SK.solve_rows(m.tree, **args, **kw)
     qacc = d.qacc_smooth + dqacc
 
     # finiteness guard (physics semantics: a degenerate solve falls back

@@ -40,6 +40,18 @@ PUT_MODEL_KW = dict(con_sel={1: 8, 3: 20},
                     contact_solver="fused", fused_sel=(24, 40),
                     col_refresh=10)
 
+# wob-admm: the same env with the dense ADMM solver and its iterations in
+# the CUDA kernel (contact_solver="admm_kernel"). The contact budgets are
+# cut to the maxima the JAX package measured under the trained gait
+# (penetrating condim-3 max 17; ccd gate-hot maxima 11 / 8 / 22 / 4 by
+# class), so the dense system has 32 limit + 8 condim-1 + 3 * 62 cone =
+# 226 <= 256 rows, the kernel's limit. At the shipped budgets it has
+# 32 + 8 + 3 * 84 = 292 rows and the plain ADMM loop runs instead.
+WOB_ADMM_KW = dict(con_sel={1: 8, 3: 17},
+                   ccd_class_budgets={(False, False): 11, (False, True): 8,
+                                      (True, False): 22, (True, True): 4},
+                   contact_solver="admm_kernel")
+
 
 def ball_arena(ball_pos=(-0.05, 0.0, -0.419), ball_radius=0.454,
                ball_density=0.0025):

@@ -21,7 +21,6 @@ from flybody_tpu.physics import actuation as JA
 from flybody_tpu.physics import collision as JCOL
 from flybody_tpu.physics import constraint as JC
 from flybody_tpu.physics import forward as JF
-from flybody_tpu.physics import io_mj as jio
 from flybody_tpu.physics import kinematics as JK
 from flybody_tpu.physics import passive as JP
 from flybody_tpu.physics import sensors as JS
@@ -38,6 +37,8 @@ from flybody_tpu_torch.physics import passive as P
 from flybody_tpu_torch.physics import sensors as S
 from flybody_tpu_torch.physics import smooth as SM
 
+from torch_jax_state import close as _close, seeded_state, to_port
+
 torch.set_num_threads(2)
 
 B = 2
@@ -51,38 +52,9 @@ TOL_SOLVE = 1e-6
 TOL_CCD = 1e-6
 
 
-def _close(name, got, want, tol):
-    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
-        else np.asarray(got)
-    want = np.asarray(want)
-    assert got.shape == want.shape, (name, got.shape, want.shape)
-    scale = max(float(np.max(np.abs(want))) if want.size else 0.0, 1e-12)
-    err = float(np.max(np.abs(got - want))) if want.size else 0.0
-    assert err <= tol * scale, f"{name}: max err {err:.3e} > {tol} * {scale:.3e}"
-
-
 def _fields(td, jd, names, tol=TOL):
     for n in names:
         _close(n, getattr(td, n), getattr(jd, n), tol)
-
-
-def _seeded_state(jm, seed):
-    """qpos0 with noisy hinge angles, random qvel / act / ctrl (numpy)."""
-    rng = np.random.RandomState(seed)
-    d = jio.make_data(jm, B=B, dtype=jnp.float64)
-    qpos = np.asarray(d.qpos).copy()
-    jt = np.asarray(jm.jnt_type)
-    qadr = np.asarray(jm.jnt_qposadr)
-    hinge = qadr[jt == 3]
-    qpos[hinge] += 0.05 * rng.randn(len(hinge), B)
-    for q in qadr[jt == 1]:                  # ball joint quaternion
-        quat = np.array([1.0, 0, 0, 0])[:, None] + 0.1 * rng.randn(4, B)
-        qpos[q:q + 4] = quat / np.linalg.norm(quat, axis=0)
-    cr = np.asarray(jm.actuator_ctrlrange)
-    ctrl = cr[:, :1] + (cr[:, 1:] - cr[:, :1]) * rng.rand(jm.nu, B)
-    return d.replace(
-        qpos=jnp.asarray(qpos), qvel=jnp.asarray(0.3 * rng.randn(jm.nv, B)),
-        act=jnp.asarray(0.2 * rng.rand(jm.na, B)), ctrl=jnp.asarray(ctrl))
 
 
 # the stages of one fresh JAX substep (JF.step), in order
@@ -110,7 +82,7 @@ def world():
     env = jax_env(dtype=jnp.float64)
     jm = env.model
     pm = bridge.model_from_numpy(bridge.to_numpy(jm))
-    jd0 = _seeded_state(jm, seed=0)
+    jd0 = seeded_state(jm, seed=0)
     chain = list(zip([n for n, _ in _CHAIN], jax.jit(_jax_chain)(jm, jd0)))
     # update substep: from the fresh substep's result, perturbed so that a
     # fresh selection would differ from the stored one
@@ -128,7 +100,7 @@ def world():
 
 
 def _port(world, jd):
-    return bridge.data_from_numpy(bridge.to_numpy(jd), world["pm"])
+    return to_port(jd, world["pm"])
 
 
 def _stage_io(world, name):

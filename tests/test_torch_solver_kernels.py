@@ -1,8 +1,11 @@
-"""The fused dual solve ``solve_rows``: the port's plain version against
-``flybody_tpu.ops.solver_kernels.solve_rows`` (which on the CPU runs its
-jnp reference path, solver_kernels.py:572-585), on random compact-row
-inputs built as tools/check_solve_rows.py builds them and on inputs
-captured from a fly state. Float64 throughout."""
+"""The fused dual solve ``solve_rows`` and its stage kernels
+``upsolve_build_yd``, ``upsolve_yd`` and ``apgd_iterate``: the port's
+plain versions against ``flybody_tpu.ops.solver_kernels`` (``solve_rows``
+and ``upsolve_build_yd`` on the CPU run their jnp reference paths,
+``upsolve_yd`` and ``apgd_iterate`` run the Pallas kernels in interpret
+mode, as tests/test_solver_fused.py runs them), on random inputs and on
+inputs captured from a fly state; and ``solve_fused(_stage=...)`` against
+the JAX package's. Float64 throughout."""
 
 import numpy as np
 import pytest
@@ -13,11 +16,16 @@ import jax.numpy as jnp
 
 from flybody_tpu.ops import solver_kernels as JSK
 from flybody_tpu.ops import tree_ldl as JTL
+from flybody_tpu.physics import solver_fused as JSF
+from flybody_tpu.tasks.walk_on_ball import make_walk_on_ball as jax_env
+from flybody_tpu_torch.physics import bridge
 from flybody_tpu_torch.ops import solver_kernels as SK
 from flybody_tpu_torch.ops import tree_ldl as TL
 from flybody_tpu_torch.physics import forward as F
 from flybody_tpu_torch.physics import solver_fused as SF
 from flybody_tpu_torch.tasks.walk_on_ball import make_walk_on_ball
+
+from torch_jax_state import close, seeded_state, to_jax, to_port
 
 torch.set_num_threads(2)
 
@@ -30,12 +38,7 @@ ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
 
 
 def _close(name, got, want):
-    got = got.numpy()
-    want = np.asarray(want)
-    assert got.shape == want.shape, name
-    scale = max(float(np.max(np.abs(want))), 1e-12)
-    err = float(np.max(np.abs(got - want)))
-    assert err <= TOL * scale, f"{name}: {err:.3e} vs scale {scale:.3e}"
+    close(name, got, want, TOL)
 
 
 def _both(parent, args, kw):
@@ -107,3 +110,99 @@ def test_fly_state_update_substep_inputs(fly_rows):
                 * np.ones((1, args["f0"].shape[1])))
     got, want = _both(parent, args, dict(kw, power_iters=2))
     _check(got, want)
+
+
+# ---- the stage kernels ----------------------------------------------------
+
+ROW_ARGS = ARGS[:14]        # upsolve_build_yd's inputs after the tree
+UP_ARGS = ("ld", "dinv", "qacc_smooth", "qvel", "kcoef", "bcoef", "posr")
+APGD_ARGS = ("rreg", "active", "mu", "f0", "v0")
+
+
+def _stages_both(parent, args, kw):
+    """B3, B4 (on B3's J^T) and B2 (on B3's Yd): JAX (interpret mode / jnp
+    path) and the port's wrappers (CPU -> plain versions) on the same
+    numpy inputs. Returns {name: (port, jax)}."""
+    jtree = JTL.build_tree_meta(parent)
+    ptree = TL.build_tree_meta(parent)
+    ja = {k: (np.asarray(v) if k == "maskd" else jnp.asarray(v))
+          for k, v in args.items()}
+    pa = {k: torch.as_tensor(v) for k, v in args.items()}
+
+    def jax_side(a):
+        yd, b = JSK.upsolve_build_yd(jtree, *(a[k] for k in ROW_ARGS),
+                                     interpret=True)
+        jt = JSK.build_jt_reference(*(a[k] for k in ARGS[:6]),
+                                    jnp.asarray(a["maskd"]))
+        yd4, b4 = JSK.upsolve_yd(jtree, jt, *(a[k] for k in UP_ARGS),
+                                 interpret=True)
+        f, ystar, v = JSK.apgd_iterate(yd, b, *(a[k] for k in APGD_ARGS),
+                                       **kw, interpret=True)
+        return dict(yd=yd, b=b, yd4=yd4, b4=b4, f=f, ystar=ystar, v=v)
+
+    want = jax.jit(jax_side)(ja)
+    yd, b = SK.upsolve_build_yd(ptree, *(pa[k] for k in ROW_ARGS))
+    jt = SK.build_jt_reference(*(pa[k] for k in ARGS[:7]))
+    yd4, b4 = SK.upsolve_yd(ptree, jt, *(pa[k] for k in UP_ARGS))
+    f, ystar, v = SK.apgd_iterate(yd, b, *(pa[k] for k in APGD_ARGS), **kw)
+    got = dict(yd=yd, b=b, yd4=yd4, b4=b4, f=f, ystar=ystar, v=v)
+    return {k: (got[k], want[k]) for k in got}
+
+
+def _check_stages(parent, args, kw):
+    before = (SK.upsolve_build_yd.launches, SK.upsolve_yd.launches,
+              SK.apgd_iterate.launches)
+    for name, (g, w) in _stages_both(parent, args, kw).items():
+        _close(name, g, w)
+    # CPU tensors never reach the kernels
+    assert (SK.upsolve_build_yd.launches, SK.upsolve_yd.launches,
+            SK.apgd_iterate.launches) == before == (0, 0, 0)
+
+
+def test_stage_kernels_random_small():
+    """nv 10, kl 8, kc 8 (tests/test_solver_fused.py's sizes)."""
+    p = SK.random_rows_problem(B=4, seed=3, nv=10, nbody=5, kl=8, kc=8)
+    ld, dinv = TL.factor(TL.build_tree_meta(p["parent"]),
+                         torch.as_tensor(p["Ms"]))
+    args = {k: p[k] for k in ARGS if k not in ("ld", "dinv")}
+    args.update(ld=ld.numpy(), dinv=dinv.numpy())
+    _check_stages(p["parent"], args,
+                  dict(kl=8, kc=8, iterations=12, noslip_iterations=2,
+                       power_iters=4))
+
+
+def test_stage_kernels_fly_state(fly_rows):
+    parent, args, kw = fly_rows
+    args = dict(args, v0=args["active"])
+    _check_stages(parent, args, kw)
+
+
+def test_apgd_iterate_matches_solve_rows(fly_rows):
+    """B2 on B3's Yd is B1's APGD: the same f (same math, same inputs)."""
+    parent, args, kw = fly_rows
+    tree = TL.build_tree_meta(parent)
+    pa = {k: torch.as_tensor(v) for k, v in args.items()}
+    yd, b = SK.upsolve_build_yd(tree, *(pa[k] for k in ROW_ARGS))
+    f, _, v = SK.apgd_iterate(yd, b, *(pa.get(k) for k in APGD_ARGS), **kw)
+    f1, v1, _, _ = SK.solve_rows(tree, **pa, **kw)
+    assert torch.equal(f, f1) and torch.equal(v, v1)
+
+
+@pytest.fixture(scope="module")
+def fused_world():
+    """A seeded walk_on_ball state after the smooth stages (the port's,
+    float64), in both packages."""
+    jm = jax_env(dtype=jnp.float64).model
+    pm = bridge.model_from_numpy(bridge.to_numpy(jm))
+    pd = F.smooth_forward(pm, to_port(seeded_state(jm, seed=0), pm))
+    return jm, pm, pd, to_jax(pd, jm)
+
+
+@pytest.mark.parametrize("stage", ["assembly", "yd", "apgd", "full"])
+def test_solve_fused_stage(fused_world, stage):
+    jm, pm, pd, jd = fused_world
+    want = jax.jit(lambda m, d: JSF.solve_fused(m, d, _stage=stage))(jm, jd)
+    got = SF.solve_fused(pm, pd, _stage=stage)
+    _close("qacc", got.qacc, want.qacc)
+    if stage != "full":      # a probe adds 0 to the smooth solution
+        assert torch.equal(got.qacc, pd.qacc_smooth)
