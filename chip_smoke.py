@@ -17,7 +17,8 @@ Phases (each prints its lines; any failure exits non-zero):
               float32 runs may be)
   5. kernels  solve_rows against its plain version on the card, at the
               main path's shapes: (a) inputs captured from the main path's
-              final state, (b) random inputs; times of both
+              final state, (b) random inputs; times of both, and of (a)
+              with the solver loop switched off (where the time goes)
   6. stages   the stage split of the same solve on phase 5's fly inputs:
               upsolve_build_yd, upsolve_yd (on J^T of the same rows, held
               against upsolve_build_yd) and apgd_iterate (its f held
@@ -30,8 +31,9 @@ Phases (each prints its lines; any failure exits non-zero):
               dense system has 226 rows) at B=4096 for 2 control steps
               with the admm_iterate kernel launched 10 times per control
               step, and that kernel against its plain version env by env,
-              after 1 and after 20 iterations
-  8. the kernel table as JSON, the card line, and the result line
+              after 1 and after 20 iterations; its time at 0 iterations
+  8. registers, shared memory and resident blocks per SM of every
+     kernel; the kernel table as JSON, the card line, the result line
 """
 
 from __future__ import annotations
@@ -385,6 +387,17 @@ def main() -> int:
         print(f"kernel: solve_rows {label} kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.3f} ms", flush=True)
         if label == "fly":
+            # where the time goes: the same call without the solver loop
+            # (inputs, J build, rhs, up-sweep, y* = Yd f and the output
+            # sweeps); the difference is power + APGD + noslip
+            kw0 = dict(kwa, iterations=0, noslip_iterations=0,
+                       power_iters=0)
+            k0_ms = cuda_ms(lambda: SK.solve_rows(tree, **args, **kw0), 20)
+            print(f"breakdown: solve_rows fly {k_ms:.3f} ms; without the "
+                  f"solver loop {k0_ms:.3f} ms; the loop ({kwa['power_iters']}"
+                  f" power, {kwa['iterations']} APGD, "
+                  f"{2 * kwa['noslip_iterations']} noslip applications) "
+                  f"{k_ms - k0_ms:.3f} ms", flush=True)
             b1_f = got[0]
             # library_ms None: no single PyTorch call computes the solve
             rows["solve_rows"] = kernel_row(
@@ -554,6 +567,9 @@ def main() -> int:
         torch.cuda.synchronize()
         err5 = hold_envs(f"admm_iterate {its:2d} iterations", got5, want5,
                          TOL_ADMM_ENV)
+    k0_ms = cuda_ms(lambda: AK.admm_iterate(*a_in, **dict(akw,
+                                                           iterations=0)),
+                    20)
     # library_ms None: no single PyTorch call runs the projected iteration
     rows["admm_iterate"] = kernel_row(
         "admm_iterate", "admm_iterate.cu",
@@ -563,7 +579,24 @@ def main() -> int:
         AK.admm_work(n_rows, B, akw["iterations"]),
         nbytes(*a_in, got5))
 
+    print(f"breakdown: admm_iterate {rows['admm_iterate']['ms']:.3f} ms; "
+          f"with 0 iterations (W staged, z0 projected) {k0_ms:.3f} ms",
+          flush=True)
+
     # ---- 8. result -------------------------------------------------------
+    nM = fly_args["ld"].shape[0]
+    tabs = SK.pack_tables(m.tree)
+    for name, info in (
+            ("solve_rows", SK.kernel_info("solve_rows", m.nv, R, nM, tabs)),
+            ("upsolve_build_yd / upsolve_yd",
+             SK.kernel_info("upsolve", m.nv, R, nM, tabs)),
+            ("apgd_iterate", SK.kernel_info("apgd_iterate", m.nv, R, nM,
+                                            tabs)),
+            ("admm_iterate", AK.kernel_info(n_rows))):
+        print(f"occupancy: {name}: {info['regs']} registers per thread, "
+              f"shared memory {info['static_smem']} B static + "
+              f"{info['dynamic_smem']} B dynamic per block, "
+              f"{info['blocks_per_sm']} blocks per SM", flush=True)
     order = ("solve_rows", "apgd_iterate", "upsolve_build_yd", "upsolve_yd",
              "admm_iterate")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)

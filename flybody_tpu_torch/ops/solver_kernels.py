@@ -27,6 +27,7 @@ Each wrapper's ``.launches`` counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -294,19 +295,26 @@ def random_rows_problem(B: int, seed: int = 0, nv: int = 105,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "solve_rows_launch": ([_P] * 19          # inputs
+    "solve_rows_launch": ([_P] * 19          # inputs (maskd as bits)
                           + [_P] * 4         # outputs f, v, qfrc, dqacc
-                          + [_P, _P]         # up / down triplet tables
-                          + [_I] * 13        # sizes and iteration counts
+                          + [_P]             # the packed tables
+                          + [_I] * 14        # sizes and iteration counts
                           + [_P]),           # stream
     "upsolve_launch": ([_I] + [_P] * 15      # build flag, inputs
                        + [_P] * 2            # outputs yd, b
-                       + [_P]                # up triplet table
+                       + [_P]                # the packed tables
                        + [_I] * 6            # sizes
                        + [_P]),              # stream
     "apgd_launch": ([_P] * 7 + [_P] * 3      # inputs, outputs f, ystar, v
                     + [_I] * 9 + [_P]),      # sizes and counts, stream
 }
+
+# The kernels' shape limits (csrc/solve_rows.cu): 256 threads per env, Yd
+# held in registers as 8 warps x 14 dofs by 32 lanes x 5 columns. Within
+# them shared memory stays under 215 kB per block (a chain of 112 dofs).
+THREADS = 256
+MAX_NV = 112
+MAX_R = 160
 
 
 def _launcher(name: str):
@@ -324,15 +332,88 @@ def _launch(who: str, name: str, *args) -> None:
                            f"({cuda_build.error_string(err, 'solve_rows')})")
 
 
-def _triplets(tree, device):
-    """Up/down triplet tables (n, 3) int32 on ``device`` (cached)."""
-    key = ("sk_trip", str(device))
+def _pack(i, e, j):
+    """One int32 word per triplet: i | j << 7 | e << 14 (dofs < 128)."""
+    return (np.asarray(i, np.int64) | (np.asarray(j, np.int64) << 7)
+            | (np.asarray(e, np.int64) << 14)).astype(np.int32)
+
+
+def pack_tables(tree) -> dict:
+    """The tree tables of the kernels, as one int32 array ``tab``:
+
+    cptr  (nv + 1) and cidx (n_up): the up-sweep triplets (i, e, j) of
+          ``flat_up``, packed and grouped by j, in up-sweep order within
+          a group (the up-sweep pulled into each j, and L^T x for qfrc);
+    dn    the down-sweep triplets in ``flat_down`` order, packed;
+    sptr  (nseg + 1): where each dof's run of dn starts (one run per dof
+          with ancestors, in dn's order);
+    lptr  (nlev + 1): which runs belong to each depth level.
+
+    Also the counts n_up, n_down, nseg, nlev and n_tab = len(tab)."""
+    nv = tree.nv
+    if nv > MAX_NV:
+        raise ValueError(f"pack_tables: nv={nv} > {MAX_NV}")
+    up, dn = TL.flat_up(tree), TL.flat_down(tree)
+    pu = _pack(up[:, 0], up[:, 1], up[:, 2])
+    order = np.argsort(up[:, 2], kind="stable")
+    cptr = np.concatenate([[0], np.cumsum(np.bincount(up[:, 2],
+                                                      minlength=nv))])
+    pd = _pack(dn[:, 0], dn[:, 1], dn[:, 2])
+    starts = np.flatnonzero(np.r_[True, dn[1:, 0] != dn[:-1, 0]]) \
+        if len(dn) else np.zeros(0, np.int64)
+    sptr = np.r_[starts, len(dn)]
+    level_end = np.cumsum([len(t[0]) for t in tree.solve_down])
+    lptr = np.r_[0, np.searchsorted(starts, level_end)]
+    tab = np.concatenate([cptr, pu[order], pd, sptr, lptr]
+                         ).astype(np.int32)
+    return dict(tab=tab, n_up=len(up), n_down=len(dn), nseg=len(starts),
+                nlev=len(tree.solve_down), n_tab=len(tab))
+
+
+def _tables(tree, device):
+    """``pack_tables`` with ``tab`` on ``device`` (cached on the tree)."""
+    key = ("sk_tab", str(device))
     t = tree._dev.get(key)
     if t is None:
-        t = (torch.as_tensor(TL.flat_up(tree), device=device).contiguous(),
-             torch.as_tensor(TL.flat_down(tree), device=device).contiguous())
+        t = pack_tables(tree)
+        t["tab"] = torch.as_tensor(t["tab"], device=device).contiguous()
         tree._dev[key] = t
     return t
+
+
+def mask_bits(maskd: torch.Tensor) -> torch.Tensor:
+    """(nbody, nv) 0/1 body-dof mask -> (nbody, 4) int32, bit v % 32 of
+    word v // 32 set where maskd[body, v] is 1. Raises on any other value
+    (the kernels take the mask as bits)."""
+    nbody, nv = maskd.shape
+    if nv > MAX_NV:
+        raise ValueError(f"mask_bits: nv={nv} > {MAX_NV}")
+    if not bool(((maskd == 0) | (maskd == 1)).all()):
+        raise ValueError("maskd must hold only 0 and 1: the kernels take "
+                         "the body-dof mask as bits")
+    bits = torch.zeros((nbody, 128), dtype=torch.int64,
+                       device=maskd.device)
+    bits[:, :nv] = (maskd == 1).long()
+    words = (bits.reshape(nbody, 4, 32)
+             << torch.arange(32, device=maskd.device)).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32).contiguous()
+
+
+_mask_cache: dict = {}
+
+
+def _mask_bits_cached(maskd: torch.Tensor) -> torch.Tensor:
+    """``mask_bits`` of a model's constant mask, packed (and checked, one
+    host sync) once per tensor and version."""
+    hit = _mask_cache.get(id(maskd))
+    if hit is not None and hit[0]() is maskd and hit[1] == maskd._version:
+        return hit[2]
+    bits = mask_bits(maskd)
+    if len(_mask_cache) > 64:
+        _mask_cache.clear()
+    _mask_cache[id(maskd)] = (weakref.ref(maskd), maskd._version, bits)
+    return bits
 
 
 def check_args(who: str, checks, device) -> None:
@@ -362,17 +443,33 @@ def on_cpu(who: str, x: torch.Tensor) -> bool:
     return False
 
 
-def smem_bytes(nv: int, R: int, nM: int, threads: int) -> int:
+def smem_bytes(nv: int, R: int, nM: int, n_tab: int, n_up: int) -> int:
     """Dynamic shared memory of one block, in bytes. Mirrors the kernels'
-    carve-up (``carve`` in csrc/solve_rows.cu): Yd with an odd row stride,
-    ld, d6 (6 nv), four dof vectors, three row vectors and the reduction
-    scratch."""
-    stride = R | 1
-    return 4 * (nv * stride + nM + 10 * nv + 3 * threads + 64)
+    carve-up (``carve`` in csrc/solve_rows.cu): per-warp y slots, the
+    warp partials of Yd^T y and of the block sums, d6, Yd with an odd row
+    stride, ld, six dof vectors, eight row vectors, the n_tab words of
+    tables and the n_up up-sweep entries decoded (L[e], i * S)."""
+    nwarp = THREADS // 32
+    return 4 * (nwarp * 16 + nwarp * MAX_R + 4 * nwarp + 6 * nv
+                + nv * (R | 1) + nM + 6 * nv + 8 * MAX_R + n_tab + 2 * n_up)
 
 
-def block_threads(nv: int, R: int) -> int:
-    return -(-max(nv, R) // 32) * 32
+def check_shape(who: str, nv: int, R: int) -> None:
+    """Raise unless the kernels take nv dofs and R rows."""
+    if nv > MAX_NV or R > MAX_R:
+        raise ValueError(f"{who}: nv={nv}, R={R}; the kernel takes nv <= "
+                         f"{MAX_NV} and R <= {MAX_R} (Yd in registers)")
+
+
+def kernel_info(kernel: str, nv: int, R: int, nM: int, tables: dict) -> dict:
+    """Registers, shared memory and resident blocks per SM of ``kernel``
+    ("solve_rows", "upsolve" or "apgd_iterate") at these shapes, with the
+    tree's ``pack_tables`` (``cuda_build.kernel_info``)."""
+    which = ("solve_rows", "upsolve", "apgd_iterate").index(kernel)
+    n_up = tables["n_up"]
+    smem = (smem_bytes(nv, R, nM, tables["n_tab"], n_up), smem_bytes(
+        nv, R, nM, nv + 1 + n_up, n_up), smem_bytes(nv, R, 0, 0, 0))[which]
+    return cuda_build.kernel_info("solve_rows", which, THREADS, smem)
 
 
 def _row_checks(nv, R, B, nbody, nM, d6, u6, b1, b2, lim_sign, lim_dadr,
@@ -422,18 +519,21 @@ def solve_rows(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
         ("mu", mu, (max(kc, 1), B), f32), ("f0", f0, (R, B), f32),
         ("v0", v0, (R, B), f32)]
     check_args("solve_rows", checks, dev)
-    up, down = _triplets(tree, dev)
-    smem = smem_bytes(nv, R, nM, block_threads(nv, R))
+    check_shape("solve_rows", nv, R)
+    tb = _tables(tree, dev)
+    smem = smem_bytes(nv, R, nM, tb["n_tab"], tb["n_up"])
+    ptrs = [x.data_ptr() for _, x, _, _ in checks]
+    ptrs[6] = _mask_bits_cached(maskd).data_ptr()
     f = torch.empty((R, B), dtype=f32, device=dev)
     v = torch.empty((R, B), dtype=f32, device=dev)
     qfrc = torch.empty((nv, B), dtype=f32, device=dev)
     dqacc = torch.empty((nv, B), dtype=f32, device=dev)
-    _launch("solve_rows", "solve_rows_launch",
-            *[x.data_ptr() for _, x, _, _ in checks],
+    _launch("solve_rows", "solve_rows_launch", *ptrs,
             f.data_ptr(), v.data_ptr(), qfrc.data_ptr(), dqacc.data_ptr(),
-            up.data_ptr(), down.data_ptr(), nv, R, B, nbody, nM, kl, kc,
-            up.shape[0], down.shape[0], iterations, noslip_iterations,
-            power_iters, smem, torch.cuda.current_stream(dev).cuda_stream)
+            tb["tab"].data_ptr(), nv, R, B, nM, kl, kc, tb["n_up"],
+            tb["n_down"], tb["nseg"], tb["nlev"], iterations,
+            noslip_iterations, power_iters, smem,
+            torch.cuda.current_stream(dev).cuda_stream)
     solve_rows.launches += 1
     return f, v, qfrc, dqacc
 
@@ -443,10 +543,15 @@ solve_rows.launches = 0
 
 def _upsolve_launch(who, tree, build, jt, row_args, ld, dinv, qacc_smooth,
                     qvel, kcoef, bcoef, posr, nv, R, B):
-    """Shared launch of upsolve_build_yd (build) and upsolve_yd."""
+    """Shared launch of upsolve_build_yd (build) and upsolve_yd: checks
+    the shape, then launches (row_args' maskd goes as bits)."""
     dev = ld.device
-    up, _ = _triplets(tree, dev)
     nM = ld.shape[0]
+    check_shape(who, nv, R)
+    tb = _tables(tree, dev)
+    smem = smem_bytes(nv, R, nM, nv + 1 + tb["n_up"], tb["n_up"])
+    if build:
+        row_args = (*row_args[:6], _mask_bits_cached(row_args[6]))
     yd = torch.empty((nv, R, B), dtype=torch.float32, device=dev)
     b = torch.empty((R, B), dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()
@@ -454,8 +559,7 @@ def _upsolve_launch(who, tree, build, jt, row_args, ld, dinv, qacc_smooth,
             *[ptr(x) for x in row_args], ld.data_ptr(), dinv.data_ptr(),
             qacc_smooth.data_ptr(), qvel.data_ptr(), kcoef.data_ptr(),
             bcoef.data_ptr(), posr.data_ptr(), yd.data_ptr(), b.data_ptr(),
-            up.data_ptr(), nv, R, B, nM, up.shape[0],
-            smem_bytes(nv, R, nM, block_threads(nv, R)),
+            tb["tab"].data_ptr(), nv, R, B, nM, tb["n_up"], smem,
             torch.cuda.current_stream(dev).cuda_stream)
     return yd, b
 
@@ -544,16 +648,15 @@ def apgd_iterate(yd, b, rreg, active, mu, f0, v0=None, *, kl: int, kc: int,
               ("mu", mu, (max(kc, 1), B), f32), ("f0", f0, (R, B), f32),
               ("v0", v0, (R, B), f32)]
     check_args("apgd_iterate", checks, dev)
-    if kc <= 0:
-        raise ValueError("apgd_iterate: the kernel needs kc > 0 cones")
+    check_shape("apgd_iterate", nv, R)
+    smem = smem_bytes(nv, R, 0, 0, 0)
     f = torch.empty((R, B), dtype=f32, device=dev)
     ystar = torch.empty((nv, B), dtype=f32, device=dev)
     v = torch.empty((R, B), dtype=f32, device=dev)
     _launch("apgd_iterate", "apgd_launch",
             *[x.data_ptr() for _, x, _, _ in checks],
             f.data_ptr(), ystar.data_ptr(), v.data_ptr(), nv, R, B, kl, kc,
-            iterations, noslip_iterations, power_iters,
-            smem_bytes(nv, R, 0, block_threads(nv, R)),
+            iterations, noslip_iterations, power_iters, smem,
             torch.cuda.current_stream(dev).cuda_stream)
     apgd_iterate.launches += 1
     return f, ystar, v

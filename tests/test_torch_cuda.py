@@ -15,8 +15,11 @@ import torch
 
 from flybody_tpu_torch.ops import admm_kernel as AK
 from flybody_tpu_torch.ops import cuda_build
+from flybody_tpu_torch.ops import linalg as LA
 from flybody_tpu_torch.ops import solver_kernels as SK
 from flybody_tpu_torch.ops import tree_ldl as TL
+from flybody_tpu_torch.physics import solver_dense as SD
+from flybody_tpu_torch import profile_solve_rows as PS
 
 KW = dict(kl=32, kc=40, iterations=20, noslip_iterations=3, power_iters=4)
 ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
@@ -26,8 +29,8 @@ APGD_ARGS = ("rreg", "active", "mu", "f0", "v0")
 ADMM_KW = dict(kl=40, kc=62, iterations=20)     # wob-admm: 226 rows
 
 
-def _problem(device, dtype, B=8):
-    p = SK.random_rows_problem(B=B, seed=1)
+def _problem(device, dtype, B=8, **shape):
+    p = SK.random_rows_problem(B=B, seed=1, **shape)
     tree = TL.build_tree_meta(p["parent"])
     ld, dinv = TL.factor(tree, torch.as_tensor(p["Ms"], device=device).to(
         dtype))
@@ -40,21 +43,26 @@ def _problem(device, dtype, B=8):
     return tree, args
 
 
-def _admm_problem(device, dtype, B=8, seed=2):
-    """W = (A_s + rho I)^-1 of a random unit-diagonal SPD A_s, and the
-    rest of admm_iterate's inputs, at wob-admm's layout."""
+def _admm_problem(device, dtype, B=8, seed=2, kl=ADMM_KW["kl"],
+                  kc=ADMM_KW["kc"], extra=0):
+    """W = (A_s + rho I)^-1 of a random unit-diagonal SPD A_s, laid out as
+    solver_dense.inverse_operator returns it (a (rows, rows, B) view of a
+    contiguous (B, rows, rows) tensor), and the rest of admm_iterate's
+    inputs, at wob-admm's layout by default."""
     rng = np.random.RandomState(seed)
-    rows = ADMM_KW["kl"] + 3 * ADMM_KW["kc"]
+    rows = kl + 3 * kc + extra
     G = rng.randn(B, rows, 2 * rows) / np.sqrt(2 * rows)
     A = G @ G.transpose(0, 2, 1)
     dg = 1.0 / np.sqrt(np.einsum("bii->bi", A))
     A = A * dg[:, :, None] * dg[:, None, :]
-    W = np.linalg.inv(A + 10.0 * np.eye(rows)).transpose(1, 2, 0)
-    p = dict(W=W, b=rng.randn(rows, B), z0=rng.randn(rows, B),
-             mu=rng.rand(ADMM_KW["kc"], B) * 0.8 + 0.2,
+    W = torch.as_tensor(np.linalg.inv(A + 10.0 * np.eye(rows)),
+                        device=device).to(dtype).contiguous()
+    p = dict(b=rng.randn(rows, B), z0=rng.randn(rows, B),
+             mu=rng.rand(kc, B) * 0.8 + 0.2,
              active=(rng.rand(rows, B) > 0.2).astype(np.float64))
-    return {k: torch.as_tensor(v, device=device).to(dtype)
-            for k, v in p.items()}
+    return dict(W=W.permute(1, 2, 0),
+                **{k: torch.as_tensor(v, device=device).to(dtype)
+                   for k, v in p.items()})
 
 
 def _stage_calls(tree, a):
@@ -108,20 +116,167 @@ def test_build_needs_nvcc():
         cuda_build.build_all(["solve_rows"])
 
 
+# ---- host-side helpers of the kernels (run anywhere) ----------------------
+
+
+def _unpack(p):
+    return p & 127, p >> 14, (p >> 7) & 127          # i, e, j
+
+
+@pytest.mark.parametrize("nv", [105, 10], ids=["fly_sized", "small"])
+def test_pack_tables_drive_the_sweeps(nv):
+    """The packed tables, walked as the kernel walks them, give the tree
+    sweeps of tree_ldl: the up-sweep L^{-T} (pulled into each dof, last
+    to first), L^T x (one thread per target dof) and L^{-1} x (level by
+    level, one lane per dof), float64."""
+    p = SK.random_rows_problem(B=3, seed=4, nv=nv, nbody=5, kl=2, kc=2)
+    tree = TL.build_tree_meta(p["parent"])
+    ld, _ = TL.factor(tree, torch.as_tensor(p["Ms"]))
+    t = SK.pack_tables(tree)
+    tab, n_up, n_down, nseg = t["tab"], t["n_up"], t["n_down"], t["nseg"]
+    cptr, cidx = tab[:nv + 1], tab[nv + 1:nv + 1 + n_up]
+    o = nv + 1 + n_up
+    dn, sptr = tab[o:o + n_down], tab[o + n_down:o + n_down + nseg + 1]
+    lptr = tab[o + n_down + nseg + 1:]
+    assert len(lptr) == t["nlev"] + 1 and t["n_tab"] == len(tab)
+    x = torch.as_tensor(np.random.RandomState(5).randn(nv, 3))
+
+    ref = x.clone()                                  # L^{-T} x, by level
+    for ii, ee, jj in tree.on("cpu")["up"]:
+        ref.index_add_(0, jj, -ld[ee] * ref[ii])
+    got = x.clone()
+    for j in range(nv - 1, -1, -1):
+        for pk in cidx[cptr[j]:cptr[j + 1]]:
+            i, e, _ = _unpack(pk)
+            assert i > j
+            got[j] -= ld[e] * got[i]
+    torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+
+    got = x.clone()                                  # L^T x
+    for j in range(nv):
+        for pk in cidx[cptr[j]:cptr[j + 1]]:
+            i, e, jj = _unpack(pk)
+            assert jj == j
+            got[j] += ld[e] * x[i]
+    torch.testing.assert_close(got, TL.mul_lt(tree, ld, x), rtol=1e-12,
+                               atol=1e-12)
+
+    got = x.clone()                                  # L^{-1} x
+    for lev in range(t["nlev"]):
+        for sg in range(lptr[lev], lptr[lev + 1]):
+            i0 = _unpack(dn[sptr[sg]])[0]
+            for pk in dn[sptr[sg]:sptr[sg + 1]]:
+                i, e, j = _unpack(pk)
+                assert i == i0
+                got[i] -= ld[e] * got[j]
+    torch.testing.assert_close(got, TL.solve_down(tree, ld, x), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_mask_bits():
+    """The body-dof mask as bits, bit v % 32 of word v // 32; anything but
+    0 and 1 is refused."""
+    rng = np.random.RandomState(6)
+    maskd = torch.as_tensor((rng.rand(69, 105) < 0.3).astype(np.float32))
+    bits = SK.mask_bits(maskd)
+    assert bits.dtype == torch.int32 and tuple(bits.shape) == (69, 4)
+    words = bits.numpy().view(np.uint32)
+    got = (words[:, np.arange(105) // 32] >> (np.arange(105) % 32)) & 1
+    np.testing.assert_array_equal(got, maskd.numpy())
+    bad = maskd.clone()
+    bad[3, 7] = 0.5
+    with pytest.raises(ValueError, match="0 and 1"):
+        SK.mask_bits(bad)
+
+
+def test_shape_limits():
+    """The kernels hold Yd in registers: nv <= 112 and R <= 160."""
+    SK.check_shape("solve_rows", SK.MAX_NV, SK.MAX_R)
+    for nv, R in ((SK.MAX_NV + 1, 152), (105, SK.MAX_R + 1)):
+        with pytest.raises(ValueError, match="nv <= 112 and R <= 160"):
+            SK.check_shape("solve_rows", nv, R)
+
+
+def test_admm_w_layout():
+    """admm_iterate's kernel reads W in place: inverse_operator's layout
+    passes, a batch-minor contiguous W is refused."""
+    a = _admm_problem("cpu", torch.float32, B=3, kl=2, kc=3)
+    rows = a["W"].shape[0]
+    AK.check_w_layout(a["W"])
+    with pytest.raises(ValueError, match="env-major"):
+        AK.check_w_layout(a["W"].contiguous())
+    M = a["W"].permute(2, 0, 1).double()
+    W = SD.inverse_operator(LA.cho_factor(M + M.transpose(1, 2)
+                                          + rows * torch.eye(rows)))
+    AK.check_w_layout(W)
+    AK.check_w_layout(W.to(torch.float32))   # solver_dense's cast keeps it
+    assert tuple(W.shape) == (rows, rows, 3)
+
+
+def test_profile_cuts_apply():
+    """profile_solve_rows' cuts still find their places in the kernel's
+    source: the output sweeps end in a return, the up-sweep loop goes."""
+    with open(os.path.join(cuda_build.CSRC, "solve_rows.cu")) as fh:
+        src = fh.read()
+    no_sweeps = PS.cut(src, PS.CUTS["no_sweeps"])
+    assert "    return;\n    // ---- 7." in no_sweeps
+    no_up = PS.cut(src, PS.CUTS["no_upsweep"])
+    assert "for (int j = nv - 1" in src and "for (int j = nv - 1" not in no_up
+    with pytest.raises(ValueError, match="no cut matches"):
+        PS.cut("// another kernel", PS.CUTS["no_sweeps"])
+
+
+# ---- on the card -----------------------------------------------------------
+
+RAGGED = {   # nv, kl, kc: the fly's shapes and ragged register tiles
+    "fly": dict(nv=105, kl=32, kc=40),
+    "ragged": dict(nv=37, kl=5, kc=11),
+    "kl0": dict(nv=50, kl=0, kc=20),
+    "max": dict(nv=112, kl=0, kc=53),
+    "small": dict(nv=10, kl=8, kc=8),
+}
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version (float32, B=256)."""
+@pytest.mark.parametrize("shape", list(RAGGED), ids=list(RAGGED))
+def test_kernel_matches_plain_on_card(shape):
+    """The CUDA kernel against its plain version (float32, B=256), at the
+    fly's shapes and at shapes that leave ragged register tiles: nv and R
+    not multiples of the tile, kl = 0, nv = 112 and R = 159 (just under
+    the kernel's 112 and 160)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
-    tree, args = _problem("cuda", torch.float32, B=256)
+    sh = RAGGED[shape]
+    tree, args = _problem("cuda", torch.float32, B=256, nbody=20, **sh)
+    kw = dict(KW, kl=sh["kl"], kc=sh["kc"])
     n0 = SK.solve_rows.launches
-    got = SK.solve_rows(tree, **args, **KW)
-    want = SK.solve_rows_reference(tree, **args, **KW)
+    got = SK.solve_rows(tree, **args, **kw)
+    want = SK.solve_rows_reference(tree, **args, **kw)
     torch.cuda.synchronize()
     assert SK.solve_rows.launches == n0 + 1
     # float32, other summation order: see chip_smoke.py's tolerances
     for g, w in zip(got, want):
         assert ((g - w).abs().max() / w.abs().max()).item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_large_shapes_and_masks_on_card():
+    """nv over 112 or R over 160, or a maskd that is not 0/1, raise and
+    launch nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    n0 = SK.solve_rows.launches
+    for sh in (dict(nv=113, kl=32, kc=40), dict(nv=105, kl=2, kc=53)):
+        tree, args = _problem("cuda", torch.float32, **sh)
+        with pytest.raises(ValueError, match="nv <= 112 and R <= 160"):
+            SK.solve_rows(tree, **args, **dict(KW, kl=sh["kl"],
+                                               kc=sh["kc"]))
+    tree, args = _problem("cuda", torch.float32)
+    args["maskd"] = args["maskd"] * 0.5
+    with pytest.raises(ValueError, match="0 and 1"):
+        SK.solve_rows(tree, **args, **KW)
+    torch.cuda.synchronize()
+    assert SK.solve_rows.launches == n0
 
 
 @pytest.mark.cuda
@@ -162,15 +317,20 @@ def test_stage_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
-def test_admm_kernel_matches_plain_on_card():
-    """admm_iterate against its plain version (float32, B=256, 226
-    rows)."""
+@pytest.mark.parametrize("kl,kc,extra", [(40, 62, 0), (8, 6, 3)],
+                         ids=["rows226", "rows29_odd"])
+def test_admm_kernel_matches_plain_on_card(kl, kc, extra):
+    """admm_iterate against its plain version (float32, B=256) with W in
+    inverse_operator's layout: wob-admm's 226 rows (16-byte loads of W)
+    and 29 rows (odd: 4-byte loads, three rows past the cones)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
-    a = _admm_problem("cuda", torch.float32, B=256)
+    a = _admm_problem("cuda", torch.float32, B=256, kl=kl, kc=kc,
+                      extra=extra)
+    kw = dict(ADMM_KW, kl=kl, kc=kc)
     n0 = AK.admm_iterate.launches
-    got = AK.admm_iterate(*a.values(), **ADMM_KW)
-    want = AK.admm_iterate_reference(*a.values(), **ADMM_KW)
+    got = AK.admm_iterate(*a.values(), **kw)
+    want = AK.admm_iterate_reference(*a.values(), **kw)
     torch.cuda.synchronize()
     assert AK.admm_iterate.launches == n0 + 1
     # The plain version takes the kernel's roundings in the kernel's
@@ -178,6 +338,21 @@ def test_admm_kernel_matches_plain_on_card():
     # holds it: see TOL_ADMM_ENV there.
     err = (got - want).abs().amax(dim=0)
     assert bool((err <= 1e-4 * want.abs().amax(dim=0)).all())
+
+
+@pytest.mark.cuda
+def test_admm_kernel_refuses_batch_minor_w_on_card():
+    """A W whose permute(2, 0, 1) is not contiguous (here the batch-minor
+    contiguous copy) raises and launches nothing: the kernel copies
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    a = _admm_problem("cuda", torch.float32)
+    a["W"] = a["W"].contiguous()
+    n0 = AK.admm_iterate.launches
+    with pytest.raises(ValueError, match="env-major"):
+        AK.admm_iterate(*a.values(), **ADMM_KW)
+    assert AK.admm_iterate.launches == n0
 
 
 @pytest.mark.cuda
