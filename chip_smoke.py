@@ -32,12 +32,27 @@ Phases (each prints its lines; any failure exits non-zero):
               with the admm_iterate kernel launched 10 times per control
               step, and that kernel against its plain version env by env,
               after 1 and after 20 iterations; its time at 0 iterations
-  8. registers, shared memory and resident blocks per SM of every
-     kernel; the kernel table as JSON, the card line, the result line
+  8. train    DMPOTrainer on walk_on_ball (float32, the shipped network
+              widths, 256 envs, unroll 20, batch 256, 20 action samples,
+              32 samples per insert = 640 updates per iteration, a replay
+              ring of 1,000,000) for 2 iterations: exactly 400 solve_rows
+              launches, 1280 learner updates, 10240 transitions in replay,
+              finite stats, moved parameters and both target copies;
+              solve_rows against its plain version on the inputs of the
+              rollout's final state (B=256) as in phase 5; then three
+              consecutive learner updates on the card against the same
+              updates on the CPU: the losses of each, the last one's
+              clipped gradients and the parameters (float32; float64 sets
+              how far apart two float32 runs may be)
+  9. registers, shared memory and resident blocks per SM of every
+     kernel; the kernel table as JSON ("launches" on the main path of
+     phase 3 or 6-7, "launches_train" in phase 8), the card line, the
+     result line
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -92,6 +107,24 @@ F64_FACTOR = 2.0
 # iterations carry that to ~1e-2 of the env's scale, so a bound that
 # admitted it would admit a wrong kernel too.
 TOL_ADMM_ENV = 1e-4
+
+# UPDATE_STEPS consecutive learner updates on the card (float32) against
+# the same updates on the CPU (float32) from the same params, batches and
+# action normals: the losses of every step by relative error, the last
+# step's clipped gradients of each group (policy, critic, duals) and the
+# updated parameters by relative norm. The two differ in the summation
+# order of the networks' float32 products (~1e-6 relative for sums of
+# <= 512 terms). Adam's first step is ~lr * sign(g) per entry; from the
+# second step on it depends on the gradients' magnitudes, and the
+# gradients themselves are compared after the global-norm clip. A step
+# that is wrong moves the parameters by O(lr) = 1e-4 per entry, ~2e-3 of
+# their norm. Raised by F64_FACTOR times the CPU float32 run's distance
+# from the CPU float64 run, as above. The parameter change alone (updated
+# minus initial) is held at 1e-2: a wrong step is off by O(1) of it.
+TOL_UPDATE = 1e-4
+TOL_DELTA = 1e-2
+UPDATE_STEPS = 3
+TRAIN_ITERATIONS = 2
 
 ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
             "dinv", "qacc_smooth", "qvel", "kcoef", "bcoef", "posr")
@@ -202,6 +235,159 @@ def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, flops,
           f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB), launches "
           f"{launches}", flush=True)
     return row
+
+
+def param_vector(*modules):
+    """Every parameter of ``modules`` (or of a DualParams) as one float64
+    vector on the CPU."""
+    import torch
+    return torch.cat([p.detach().double().cpu().reshape(-1)
+                      for m in modules for p in m.parameters()])
+
+
+def train_phase(env, cfg, iterations, zero_counts, counts, smi):
+    """Phase 8: DMPOTrainer on ``env`` for ``iterations``; fails on any
+    gate. Returns every kernel's launches in the run, the learner and the
+    final LoopState."""
+    import torch
+    from flybody_tpu_torch.agents.train import DMPOTrainer
+    trainer = DMPOTrainer(env, cfg)
+    roll_s = []
+    rollout = trainer.rollout_fn
+
+    def timed_rollout(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = rollout(*args)
+        torch.cuda.synchronize()
+        roll_s.append(time.perf_counter() - t)
+        return out
+
+    trainer.rollout_fn = timed_rollout
+    loop = trainer.init(0)
+    st = loop.train
+    start = {k: param_vector(getattr(st, k)) for k in (
+        "policy", "critic", "target_policy", "target_critic")}
+    torch.cuda.synchronize()
+    zero_counts()
+    iter_s = []
+    for _ in range(iterations):
+        t = time.perf_counter()
+        loop, metrics = trainer.train_iteration(loop)
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+    launched = counts()
+    st = loop.train
+    n_updates = iterations * trainer.updates_per_iter
+    n_env_steps = iterations * cfg.num_envs * cfg.unroll_length
+    upd_s = [a - b for a, b in zip(iter_s, roll_s)]
+    print(f"train: launches {launched} (expected solve_rows "
+          f"{n_env_steps // cfg.num_envs * env.n_substeps}, the others 0)",
+          flush=True)
+    if launched != dict({k: 0 for k in launched},
+                        solve_rows=n_env_steps // cfg.num_envs
+                        * env.n_substeps):
+        fail("train: solve_rows was not launched once per substep")
+    print(f"train: learner_steps {st.steps} (expected {n_updates}), replay "
+          f"size {loop.replay.size} (expected {n_env_steps}), target copies "
+          f"policy {st.target_policy_copies} critic "
+          f"{st.target_critic_copies}", flush=True)
+    if st.steps != n_updates or loop.replay.size != n_env_steps:
+        fail("train: wrong number of updates or transitions")
+    periods = (cfg.dmpo.target_policy_update_period,
+               cfg.dmpo.target_critic_update_period)
+    if (st.target_policy_copies, st.target_critic_copies) != tuple(
+            n_updates // p for p in periods) or min(
+                n_updates // p for p in periods) < 1:
+        fail("train: the target copies did not fire as scheduled")
+    bad = [k for k, v in metrics.items()
+           if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    if bad:
+        fail(f"train: non-finite stats {bad}")
+    moved = {k: rel_norm(param_vector(getattr(st, k)), v)
+             for k, v in start.items()}
+    print(f"train: parameters moved from init by (relative norm) "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in moved.items()})}; "
+          f"critic_loss {float(metrics['critic_loss']):.4f}, "
+          f"policy_loss_total {float(metrics['policy_loss_total']):.4f}, "
+          f"mean_reward {float(metrics['mean_reward']):.4f}", flush=True)
+    if not min(moved.values()) > 0:
+        fail("train: a network or its target did not move")
+    print(f"train: {iterations} iterations of {cfg.num_envs} envs x "
+          f"{cfg.unroll_length} control steps + {trainer.updates_per_iter} "
+          f"updates; rollout s per iteration "
+          f"{[round(x, 3) for x in roll_s]}, update s per iteration "
+          f"{[round(x, 3) for x in upd_s]}; actor "
+          f"{n_env_steps / sum(roll_s):.1f} env-steps/s, learner "
+          f"{n_updates / sum(upd_s):.1f} updates/s | {smi}", flush=True)
+    return launched, trainer.learner, loop
+
+
+def update_check(learner, cfg, seed: int = 1) -> None:
+    """Phase 8b: UPDATE_STEPS learner updates on the card against the same
+    updates on the CPU, from the same params (the port's init moved with
+    .to()), the same numpy-seeded batches at the trainer's shapes and the
+    same action normals."""
+    import numpy as np
+    import torch
+    from flybody_tpu_torch.agents.dmpo import DMPOLearner, Transition
+    obs, act, n, b = (learner.obs_size, learner.action_size,
+                      cfg.num_samples, cfg.batch_size)
+    rng = np.random.RandomState(seed)
+    steps = [(dict(obs=rng.normal(size=(b, obs)),
+                   action=rng.uniform(-1, 1, (b, act)),
+                   reward=rng.uniform(0, 1, b),
+                   discount=np.full(b, cfg.discount ** cfg.n_step),
+                   next_obs=rng.normal(size=(b, obs))),
+              rng.normal(size=(n, b, act))) for _ in range(UPDATE_STEPS)]
+    card = learner.init(torch.Generator().manual_seed(seed))
+    names = ("policy", "critic", "target_policy", "target_critic",
+             "dual_params")
+    groups = ("policy", "critic", "dual_params")
+    start = param_vector(*(getattr(card, g) for g in groups))
+    init = {k: copy.deepcopy(getattr(card, k).state_dict()) for k in names}
+    runs = {}
+    for label, dev, dt in (("card", learner.device, torch.float32),
+                           ("cpu32", torch.device("cpu"), torch.float32),
+                           ("cpu64", torch.device("cpu"), torch.float64)):
+        if label == "card":
+            lrn, st = learner, card
+        else:
+            lrn = DMPOLearner(copy.deepcopy(learner.policy).to("cpu", dt),
+                              copy.deepcopy(learner.critic).to("cpu", dt),
+                              act, obs, cfg)
+            st = lrn.init(torch.Generator().manual_seed(seed + 1))
+            for k in names:
+                getattr(st, k).load_state_dict(init[k])
+        out = {}
+        for i, (batch, eps) in enumerate(steps):
+            tb = Transition(**{k: torch.as_tensor(v, dtype=dt, device=dev)
+                               for k, v in batch.items()})
+            stats = lrn.update(st, tb, eps=torch.as_tensor(eps, dtype=dt,
+                                                           device=dev))
+            for k in ("critic_loss", "policy_loss_total"):
+                out[f"{k} {i + 1}"] = float(stats[k])
+        # the last step's gradients, as the optimizers took them
+        for g in groups:
+            out[f"{g} grads"] = torch.cat([
+                p.grad.double().cpu().reshape(-1)
+                for p in getattr(st, g).parameters()])
+        out["params"] = param_vector(*(getattr(st, g) for g in groups))
+        out["params - init"] = out["params"] - start
+        runs[label] = out
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    card, c32, c64 = (runs[k] for k in ("card", "cpu32", "cpu64"))
+    for name in card:
+        dist = rel_norm if torch.is_tensor(card[name]) else (
+            lambda a, b: abs(a - b) / max(abs(b), 1e-30))
+        tol = TOL_DELTA if name == "params - init" else TOL_UPDATE
+        rel, rel32 = dist(card[name], c32[name]), dist(c32[name], c64[name])
+        bound = max(tol, F64_FACTOR * rel32)
+        print(f"update: {name:22s} card f32 vs cpu f32 {rel:.3e} (cpu f32 "
+              f"vs f64 {rel32:.3e}; tol {bound:.3g})", flush=True)
+        if not rel <= bound:
+            fail(f"update {name}: {rel:.3e} > {bound:.3g}")
 
 
 def main() -> int:
@@ -358,12 +544,10 @@ def main() -> int:
     rnd_kw = dict(kl=32, kc=40, iterations=20, noslip_iterations=3,
                   power_iters=4)
 
-    rows = {}
-    b1_f = None
-    R = fly_args["u6"].shape[0]
-    n_up, n_down = len(TL.flat_up(m.tree)), len(TL.flat_down(m.tree))
-    for label, tree, args, kwa in (("fly", m.tree, fly_args, kw),
-                                   ("random", tree_r, rnd_args, rnd_kw)):
+    def check_rows(label, tree, args, kwa):
+        """solve_rows on the card against its plain version (float32, the
+        bounds raised by float64) on ``args``; returns the kernel's
+        outputs and the largest abs error."""
         n0 = SK.solve_rows.launches
         got = SK.solve_rows(tree, **args, **kwa)
         want = SK.solve_rows_reference(tree, **args, **kwa)
@@ -381,6 +565,15 @@ def main() -> int:
               f"{rel32:.3e}; tol {bound:.3g})", flush=True)
         if not rel <= bound:
             fail(f"{label} qacc rel_norm {rel:.3e} > {bound:.3g}")
+        return got, err
+
+    rows = {}
+    b1_f = None
+    R = fly_args["u6"].shape[0]
+    n_up, n_down = len(TL.flat_up(m.tree)), len(TL.flat_down(m.tree))
+    for label, tree, args, kwa in (("fly", m.tree, fly_args, kw),
+                                   ("random", tree_r, rnd_args, rnd_kw)):
+        got, err = check_rows(label, tree, args, kwa)
         k_ms = cuda_ms(lambda: SK.solve_rows(tree, **args, **kwa), 20)
         p_ms = cuda_ms(lambda: SK.solve_rows_reference(tree, **args, **kwa),
                        3)
@@ -583,7 +776,31 @@ def main() -> int:
           f"with 0 iterations (W staged, z0 projected) {k0_ms:.3f} ms",
           flush=True)
 
-    # ---- 8. result -------------------------------------------------------
+    # ---- 8. training -----------------------------------------------------
+    from flybody_tpu_torch.agents.dmpo import DMPOConfig
+    from flybody_tpu_torch.agents.train import TrainerConfig
+    tcfg = TrainerConfig(num_envs=256, unroll_length=20,
+                         replay_capacity=1_000_000, min_replay_size=5120,
+                         samples_per_insert=32.0,
+                         dmpo=DMPOConfig(batch_size=256, n_step=5,
+                                         num_samples=20))
+    train_launched, learner, loop = train_phase(
+        env, tcfg, TRAIN_ITERATIONS, zero_counts, counts, smi)
+    # solve_rows on the training path's own inputs: the next substep of the
+    # rollout's final state, at the rollout's batch
+    d_t = F.smooth_forward(m, loop.env_states.data)
+    prob_t = SF.assemble(m, d_t)
+    print(f"train: solve_rows on the rollout's final state, B="
+          f"{d_t.qacc_smooth.shape[-1]}", flush=True)
+    check_rows("train", m.tree, prob_t["args"], prob_t["kw"])
+    del loop, d_t, prob_t
+    update_check(learner, tcfg.dmpo)
+    for k, row in rows.items():
+        row["launches_train"] = train_launched[k]
+    print(f"kernel: solve_rows launches {launched['solve_rows']} on the main "
+          f"path, {train_launched['solve_rows']} in training", flush=True)
+
+    # ---- 9. result -------------------------------------------------------
     nM = fly_args["ld"].shape[0]
     tabs = SK.pack_tables(m.tree)
     for name, info in (

@@ -1,0 +1,220 @@
+"""DMPO networks: the MLP policy and the distributional critic.
+
+* policy: flat obs -> LayerNormMLP(256, 256, 256) -> NormalDiagHead
+  (init_scale 0.7, min_scale 1e-6)
+* critic: clip the action to [-1, 1], concat with the obs ->
+  LayerNormMLP(512, 512, 256) -> Linear logits over 51 atoms in
+  [-150, 150]
+
+Observation dicts flatten in sorted key order (``obs_layout``). The
+parameters start as flax's would: ``lecun_normal`` kernels (a normal
+truncated at two standard deviations), zero biases, LayerNorm scale 1 and
+bias 0, and the policy head's kernels at variance scale 1e-4. Draws come
+from a CPU generator in float64 and are cast into the parameters, so one
+seed gives the same network on every device and in every dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flybody_tpu_torch.agents.distributions import DiscreteValued, NormalDiag
+
+# stddev of a standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+_PHI = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) with no threshold, as jax.nn.softplus computes it
+    (torch's softplus returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _truncated_normal(shape, stddev: float,
+                      generator: torch.Generator | None) -> torch.Tensor:
+    """float64 normal truncated to [-2, 2] standard deviations, times
+    ``stddev``, by the inverse CDF of uniforms from ``generator``."""
+    lo, hi = _PHI(-2.0), _PHI(2.0)
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    x = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + (hi - lo) * u) - 1.0)
+    return x.clamp(-2.0, 2.0) * stddev
+
+
+@torch.no_grad()
+def _dense_init(layer: nn.Linear, scale: float, generator) -> None:
+    """flax variance_scaling(scale, "fan_in", "truncated_normal") kernel,
+    zero bias."""
+    fan_in = layer.weight.shape[1]
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
+    layer.weight.copy_(_truncated_normal(layer.weight.shape, std, generator))
+    layer.bias.zero_()
+
+
+def _linear(n_in: int, n_out: int) -> nn.Linear:
+    return nn.utils.skip_init(nn.Linear, n_in, n_out)
+
+
+def batch_concat(obs: dict, keys: Sequence[str] | None = None,
+                 num_batch_dims: int = 0) -> torch.Tensor:
+    """Flatten each observation beyond the leading ``num_batch_dims`` axes
+    and concatenate, sorted by key. num_batch_dims=-1 concatenates along
+    the last axis without flattening (all items the same rank)."""
+    keys = sorted(obs.keys()) if keys is None else keys
+    parts = []
+    for k in keys:
+        x = obs[k]
+        if num_batch_dims < 0:
+            parts.append(x if x.ndim else x[None])
+            continue
+        if x.ndim <= num_batch_dims:
+            x = x[..., None]
+        parts.append(x.reshape(tuple(x.shape[:num_batch_dims]) + (-1,)))
+    return torch.cat(parts, dim=-1)
+
+
+def obs_layout(example_obs: dict, task_keys: Sequence[str] = ()):
+    """Flat-vector layout of a batched observation dict: (keys, slices),
+    keys in concatenation order (task keys first, sorted, then the rest,
+    sorted) and slices mapping key -> (start, size, shape), shapes without
+    the leading batch axis."""
+    present_task = sorted(k for k in example_obs if k in set(task_keys))
+    rest = sorted(k for k in example_obs if k not in set(task_keys))
+    keys = present_task + rest
+    slices = {}
+    start = 0
+    for k in keys:
+        shape = tuple(example_obs[k].shape[1:]) or (1,)
+        size = int(np.prod(shape))
+        slices[k] = (start, size, shape)
+        start += size
+    return keys, slices
+
+
+class LayerNormMLP(nn.Module):
+    """Linear -> LayerNorm -> tanh -> [Linear -> elu]* (acme's
+    LayerNormMLP; the last elu only with activate_final)."""
+
+    def __init__(self, in_size: int, layer_sizes: Sequence[int],
+                 activate_final: bool = False, generator=None):
+        super().__init__()
+        sizes = (in_size,) + tuple(layer_sizes)
+        self.linears = nn.ModuleList(
+            _linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.norm = nn.LayerNorm(layer_sizes[0], eps=1e-6)  # flax's eps
+        self.activate_final = activate_final
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        for layer in self.linears:
+            _dense_init(layer, 1.0, generator)
+        self.norm.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.tanh(self.norm(self.linears[0](x)))
+        last = len(self.linears) - 2
+        for i, layer in enumerate(self.linears[1:]):
+            x = layer(x)
+            if i != last or self.activate_final:
+                x = F.elu(x)
+        return x
+
+
+class NormalDiagHead(nn.Module):
+    """MultivariateNormalDiagHead (acme): affine mean + softplus stddev."""
+
+    def __init__(self, in_size: int, num_dimensions: int,
+                 init_scale: float = 0.7, min_scale: float = 1e-6,
+                 generator=None):
+        super().__init__()
+        self.mean = _linear(in_size, num_dimensions)
+        self.scale = _linear(in_size, num_dimensions)
+        self.init_scale = init_scale
+        self.min_scale = min_scale
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        _dense_init(self.mean, 1e-4, generator)
+        _dense_init(self.scale, 1e-4, generator)
+
+    def forward(self, x: torch.Tensor) -> NormalDiag:
+        scale = softplus(self.scale(x))
+        scale = scale * self.init_scale / math.log(2.0)  # softplus(0)
+        return NormalDiag(mean=self.mean(x), stddev=scale + self.min_scale)
+
+
+class PolicyNetwork(nn.Module):
+    """Feed-forward stochastic policy: flat obs -> NormalDiag."""
+
+    def __init__(self, obs_size: int, action_size: int,
+                 layer_sizes: Sequence[int] = (256, 256, 256),
+                 init_scale: float = 0.7, generator=None):
+        super().__init__()
+        self.mlp = LayerNormMLP(obs_size, layer_sizes, activate_final=True,
+                                generator=generator)
+        self.head = NormalDiagHead(layer_sizes[-1], action_size,
+                                   init_scale=init_scale, generator=generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.mlp.reset_parameters(generator)
+        self.head.reset_parameters(generator)
+
+    def forward(self, obs) -> NormalDiag:
+        x = obs if isinstance(obs, torch.Tensor) else batch_concat(
+            obs, num_batch_dims=-1)
+        return self.head(self.mlp(x))
+
+
+class DistributionalCritic(nn.Module):
+    """Critic multiplexer + distributional head (51 atoms in
+    [-150, 150])."""
+
+    def __init__(self, obs_size: int, action_size: int,
+                 layer_sizes: Sequence[int] = (512, 512, 256),
+                 vmin: float = -150.0, vmax: float = 150.0,
+                 num_atoms: int = 51, action_clip: tuple | None = (-1.0, 1.0),
+                 generator=None):
+        super().__init__()
+        self.mlp = LayerNormMLP(obs_size + action_size, layer_sizes,
+                                activate_final=True, generator=generator)
+        self.logits = _linear(layer_sizes[-1], num_atoms)
+        self.action_clip = action_clip
+        self.vmin, self.vmax, self.num_atoms = vmin, vmax, num_atoms
+        _dense_init(self.logits, 1.0, generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.mlp.reset_parameters(generator)
+        _dense_init(self.logits, 1.0, generator)
+
+    def forward(self, obs, action: torch.Tensor) -> DiscreteValued:
+        x = obs if isinstance(obs, torch.Tensor) else batch_concat(
+            obs, num_batch_dims=-1)
+        if self.action_clip is not None:
+            action = torch.clamp(action, self.action_clip[0],
+                                 self.action_clip[1])
+        logits = self.logits(self.mlp(torch.cat([x, action], dim=-1)))
+        values = torch.linspace(self.vmin, self.vmax, self.num_atoms,
+                                dtype=logits.dtype, device=logits.device)
+        return DiscreteValued(logits=logits, values=values)
+
+
+def make_policy_critic(action_size: int, obs_size: int,
+                       policy_layers=(256, 256, 256),
+                       critic_layers=(512, 512, 256),
+                       vmin=-150.0, vmax=150.0, num_atoms=51,
+                       generator: torch.Generator | None = None):
+    """Network factory (reference make_network_factory_dmpo): a freshly
+    initialised (policy, critic) pair on the CPU in float32."""
+    policy = PolicyNetwork(obs_size, action_size, layer_sizes=policy_layers,
+                           generator=generator)
+    critic = DistributionalCritic(obs_size, action_size,
+                                  layer_sizes=critic_layers, vmin=vmin,
+                                  vmax=vmax, num_atoms=num_atoms,
+                                  generator=generator)
+    return policy, critic

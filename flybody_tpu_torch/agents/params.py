@@ -1,0 +1,76 @@
+"""Weights carried across: flax parameter trees into the port's modules.
+
+A flax tree arrives as nested dicts of numpy arrays, e.g. the policy's
+
+    {"params": {"LayerNormMLP_0": {"Dense_0": {"kernel", "bias"},
+                                   "LayerNorm_0": {"scale", "bias"}, ...},
+                "NormalDiagHead_0": {"Dense_0": ..., "Dense_1": ...}}}
+
+A flax Dense kernel is (in, out); a torch Linear weight is (out, in).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_DUAL_FIELDS = ("log_temperature", "log_alpha_mean", "log_alpha_stddev",
+                "log_penalty_temperature")
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def _dense(out: dict, prefix: str, node: dict) -> None:
+    out[f"{prefix}.weight"] = _tensor(np.asarray(node["kernel"]).T)
+    out[f"{prefix}.bias"] = _tensor(node["bias"])
+
+
+def _mlp(out: dict, node: dict) -> None:
+    n = sum(k.startswith("Dense_") for k in node)
+    for i in range(n):
+        _dense(out, f"mlp.linears.{i}", node[f"Dense_{i}"])
+    out["mlp.norm.weight"] = _tensor(node["LayerNorm_0"]["scale"])
+    out["mlp.norm.bias"] = _tensor(node["LayerNorm_0"]["bias"])
+
+
+def policy_state_dict(variables: dict) -> dict:
+    """flax PolicyNetwork variables -> PolicyNetwork state_dict."""
+    p = variables.get("params", variables)
+    out = {}
+    _mlp(out, p["LayerNormMLP_0"])
+    head = p["NormalDiagHead_0"]
+    _dense(out, "head.mean", head["Dense_0"])
+    _dense(out, "head.scale", head["Dense_1"])
+    return out
+
+
+def critic_state_dict(variables: dict) -> dict:
+    """flax DistributionalCritic variables -> DistributionalCritic
+    state_dict."""
+    p = variables.get("params", variables)
+    out = {}
+    _mlp(out, p["LayerNormMLP_0"])
+    _dense(out, "logits", p["Dense_0"])
+    return out
+
+
+def carry_train_state(learner, jax_state: dict, generator=None):
+    """A port TrainState holding a JAX TrainState's policy, critic, both
+    targets, dual params and step count. ``jax_state`` maps those field
+    names ("policy_params", ..., "dual_params", "steps") to numpy trees.
+    The Adam moments are not carried: the optimizers start fresh."""
+    state = learner.init(generator)
+    state.policy.load_state_dict(policy_state_dict(jax_state["policy_params"]))
+    state.target_policy.load_state_dict(
+        policy_state_dict(jax_state["target_policy_params"]))
+    state.critic.load_state_dict(critic_state_dict(jax_state["critic_params"]))
+    state.target_critic.load_state_dict(
+        critic_state_dict(jax_state["target_critic_params"]))
+    with torch.no_grad():
+        for name in _DUAL_FIELDS:
+            getattr(state.dual_params, name).copy_(
+                _tensor(jax_state["dual_params"][name]))
+    state.steps = int(np.asarray(jax_state["steps"]))
+    return state

@@ -1,0 +1,219 @@
+"""DMPO training entry point of the PyTorch port (reference
+train_dmpo_ray.py): batched rollout, on-device replay and the learner on
+one device. Usage:
+
+    python -m flybody_tpu_torch.train_dmpo --task walk_on_ball \
+        --num-envs 256 --iterations 1000 --log-every 10 [--test]
+
+It runs on "cuda" and raises without it unless ``--device cpu`` is given.
+``--test`` runs a small smoke configuration printing stats. The flags are
+those of the JAX package's train_dmpo.py; the tasks other than
+walk_on_ball (ROADMAP A5, A7), the intention and vision networks and
+their flags, multi-task training and decoder transfer (A6) raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import time
+
+TASKS = ("walk_on_ball", "template", "walk_imitation", "flight_imitation",
+         "vision_guided_flight", "rodent_escape_bowl", "rodent_run_gaps",
+         "rodent_maze_forage", "rodent_two_touch", "rodent_walk_imitation",
+         "walk_humanoid")
+
+# flags read only by the intention network (ROADMAP A6), with their
+# defaults: any other value raises rather than being dropped
+A6_FLAGS = {"encoder_layers": "512,512", "decoder_layers": "512,512,512",
+            "intention_size": 60, "high_level_intention_size": 0,
+            "intention_kl_weight": 0.0}
+
+
+def make_env(name: str, device):
+    if name != "walk_on_ball":
+        raise NotImplementedError(
+            f"task {name!r} is not ported yet (ROADMAP A5 / A7)")
+    from flybody_tpu_torch.fly_envs import walk_on_ball
+    return walk_on_ball(device=device)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--task", default="walk_on_ball", choices=sorted(TASKS))
+    p.add_argument("--task-envs", default="",
+                   help="multi-task mode: 'task:num_envs,task:num_envs' "
+                        "(not ported: ROADMAP A6)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' only when asked for")
+    p.add_argument("--num-envs", type=int, default=256)
+    p.add_argument("--unroll-length", type=int, default=20)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--iterations", type=int, default=1000)
+    p.add_argument("--replay-capacity", type=int, default=1_000_000)
+    p.add_argument("--min-replay-size", type=int, default=10_000)
+    p.add_argument("--samples-per-insert", type=float, default=32.0)
+    p.add_argument("--n-step", type=int, default=5)
+    # learner hyperparameters (reference ray_distributed_dmpo.py:44-82)
+    p.add_argument("--policy-lr", type=float, default=1e-4)
+    p.add_argument("--critic-lr", type=float, default=1e-4)
+    p.add_argument("--dual-lr", type=float, default=1e-3)
+    p.add_argument("--discount", type=float, default=0.99)
+    p.add_argument("--num-samples", type=int, default=20)
+    p.add_argument("--target-policy-update-period", type=int, default=101)
+    p.add_argument("--target-critic-update-period", type=int, default=107)
+    p.add_argument("--clip-global-norm", type=float, default=40.0)
+    # network shapes (reference network_factory.py:89-113)
+    p.add_argument("--policy-layers", default="256,256,256")
+    p.add_argument("--critic-layers", default="512,512,256")
+    p.add_argument("--encoder-layers", default=A6_FLAGS["encoder_layers"])
+    p.add_argument("--decoder-layers", default=A6_FLAGS["decoder_layers"])
+    p.add_argument("--vmin", type=float, default=-150.0)
+    p.add_argument("--vmax", type=float, default=150.0)
+    p.add_argument("--num-atoms", type=int, default=51)
+    p.add_argument("--action-delay", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-minutes", type=float, default=30.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--network", default="plain",
+                   choices=("plain", "intention", "vision"),
+                   help="network factory mode (only 'plain' is ported)")
+    p.add_argument("--intention-size", type=int,
+                   default=A6_FLAGS["intention_size"])
+    p.add_argument("--high-level-intention-size", type=int,
+                   default=A6_FLAGS["high_level_intention_size"])
+    p.add_argument("--intention-kl-weight", type=float,
+                   default=A6_FLAGS["intention_kl_weight"])
+    p.add_argument("--kickstart-ckpt", default="",
+                   help="teacher policy checkpoint for kickstarting")
+    p.add_argument("--kickstart-epsilon", type=float, default=0.01)
+    p.add_argument("--transfer-ckpt", default="",
+                   help="donor checkpoint: restore decoder + freeze "
+                        "(not ported: ROADMAP A6)")
+    p.add_argument("--config", default="",
+                   help="YAML run config (overrides CLI defaults; "
+                        "reference vnl_ray/config/*.yaml)")
+    p.add_argument("--test", action="store_true",
+                   help="small smoke configuration")
+    args = p.parse_args(argv)
+    if args.config:
+        from flybody_tpu_torch.utils.config import apply_yaml_config
+        apply_yaml_config(args, args.config)
+    if args.test:
+        args.num_envs = 8
+        args.unroll_length = 10
+        args.batch_size = 32
+        args.min_replay_size = 64
+        args.replay_capacity = 10_000
+        args.iterations = min(args.iterations, 20)
+        args.log_every = 1
+    return args
+
+
+def layers(s):
+    if isinstance(s, (list, tuple)):
+        return tuple(int(x) for x in s)
+    return tuple(int(x) for x in str(s).split(",") if str(x).strip())
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.task_envs:
+        raise NotImplementedError(
+            "multi-task training is not ported yet (ROADMAP A6)")
+    if args.transfer_ckpt:
+        raise NotImplementedError(
+            "decoder transfer needs the intention network (ROADMAP A6)")
+    for k, default in A6_FLAGS.items():
+        v = getattr(args, k)
+        if (layers(v) != layers(default) if k.endswith("_layers")
+                else v != default):
+            raise NotImplementedError(
+                f"--{k.replace('_', '-')} is read only by the intention "
+                f"network, which is not ported yet (ROADMAP A6)")
+
+    from flybody_tpu_torch.agents.dmpo import DMPOConfig
+    from flybody_tpu_torch.agents.train import DMPOTrainer, TrainerConfig
+    from flybody_tpu_torch.io import checkpoint as ckpt
+    from flybody_tpu_torch.utils.loggers import make_default_logger
+
+    cfg = TrainerConfig(
+        num_envs=args.num_envs, unroll_length=args.unroll_length,
+        replay_capacity=args.replay_capacity,
+        min_replay_size=args.min_replay_size,
+        samples_per_insert=args.samples_per_insert,
+        network=args.network,
+        policy_layers=layers(args.policy_layers),
+        critic_layers=layers(args.critic_layers),
+        vmin=args.vmin, vmax=args.vmax, num_atoms=args.num_atoms,
+        action_delay=args.action_delay,
+        dmpo=DMPOConfig(batch_size=args.batch_size, n_step=args.n_step,
+                        discount=args.discount,
+                        num_samples=args.num_samples,
+                        policy_lr=args.policy_lr, critic_lr=args.critic_lr,
+                        dual_lr=args.dual_lr,
+                        clip_global_norm=args.clip_global_norm,
+                        target_policy_update_period=(
+                            args.target_policy_update_period),
+                        target_critic_update_period=(
+                            args.target_critic_update_period)))
+    trainer = DMPOTrainer(make_env(args.task, args.device), cfg)
+    if args.kickstart_ckpt:
+        trainer.load_teacher(ckpt.restore_policy_params(args.kickstart_ckpt),
+                             args.kickstart_epsilon)
+    logger = make_default_logger("learner", save_csv=bool(args.ckpt_dir),
+                                 csv_dir=args.ckpt_dir or "logs")
+
+    loop = trainer.init(args.seed)
+    ckptr = (ckpt.PeriodicCheckpointer(args.ckpt_dir, args.ckpt_minutes)
+             if args.ckpt_dir else None)
+    # checkpoints carry the learner state only (networks, optimizers,
+    # duals, step counters): the replay ring is GBs, and a resumed run
+    # refills it through the min_replay gate
+    ckpt_view = lambda lp: {"train": lp.train,
+                            "actor_steps": lp.actor_steps}
+    resume = ckpt.latest(args.ckpt_dir) if args.ckpt_dir else None
+    if resume:
+        try:
+            loop.actor_steps = ckpt.restore(resume,
+                                            ckpt_view(loop))["actor_steps"]
+            print(f"resumed from {resume}")
+        except ValueError as e:
+            print(f"WARNING: checkpoint {resume} does not match the current "
+                  f"run structure ({e}); starting fresh")
+
+    t0 = time.time()
+    steps0 = loop.actor_steps
+    for it in range(args.iterations):
+        loop, metrics = trainer.train_iteration(loop)
+        if (it + 1) % args.log_every == 0:
+            critic_loss = float(metrics["critic_loss"])
+            dt = time.time() - t0
+            sps = (loop.actor_steps - steps0) / max(dt, 1e-9)
+            t0, steps0 = time.time(), loop.actor_steps
+            logger.write({
+                "iteration": it + 1,
+                "actor_steps": loop.actor_steps,
+                "learner_steps": metrics["learner_steps"],
+                "actor_sps": sps,
+                "episode_return": float(metrics["mean_episode_return"]),
+                "reward": float(metrics["mean_reward"]),
+                "critic_loss": critic_loss,
+                "dual_temperature": float(metrics["dual_temperature"]),
+                "obs_absmax": float(metrics["obs_absmax"]),
+            })
+            if metrics["learner_steps"] > 0 and not math.isfinite(
+                    critic_loss):
+                print("FATAL: non-finite learner stats; aborting run")
+                logger.close()
+                return 1
+        if ckptr is not None:
+            ckptr.maybe_save(ckpt_view(loop), it)
+    logger.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -41,7 +41,9 @@ def test_no_jax_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, flybody_tpu_torch.fly_envs, "
             "flybody_tpu_torch.physics.bridge, "
-            "flybody_tpu_torch.ops.solver_kernels; "
+            "flybody_tpu_torch.ops.solver_kernels, "
+            "flybody_tpu_torch.agents.train, flybody_tpu_torch.train_dmpo, "
+            "flybody_tpu_torch.io.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
