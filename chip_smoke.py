@@ -44,10 +44,23 @@ Phases (each prints its lines; any failure exits non-zero):
               updates on the CPU: the losses of each, the last one's
               clipped gradients and the parameters (float32; float64 sets
               how far apart two float32 runs may be)
-  9. registers, shared memory and resident blocks per SM of every
-     kernel; the kernel table as JSON ("launches" on the main path of
-     phase 3 or 6-7, "launches_train" in phase 8), the card line, the
-     result line
+  9. imitation walk_imitation (the free fly on a floor, the JAX package's
+              budgets: solve_rows at 176 rows, the kernel's wide instance)
+              at B=4096, float32: reset from a seeded CUDA generator, one
+              warm-up control step, then 10 autoreset_step calls with
+              mid-range actions; obs and reward finite, solve_rows launched
+              exactly 10 times per control step, floor contacts selected
+              and penetrating in the final state (and taken by the
+              solver); one substep of 4 envs on the card against the CPU
+              as in phase 4; solve_rows against its plain version on the
+              final state's inputs as in phase 5, its time with and
+              without the solver loop
+ 10. registers, shared memory, resident blocks per SM and local (spill)
+     bytes of every kernel (solve_rows in both instances); the kernel
+     table as JSON ("launches" on the main path of phase 3 or 6-7,
+     "launches_train" in phase 8, solve_rows' "launches_imitation",
+     "ms_imitation", "plain_ms_imitation" and "bound_ms_imitation" in
+     phase 9), the card line, the result line
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 4096
 STEPS = 20
 ADMM_STEPS = 2
+IMIT_STEPS = 10
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth
@@ -219,16 +233,21 @@ def nbytes(*tensors) -> int:
                if x is not None)
 
 
+def bound(flops, moved) -> tuple:
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_F32, moved / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, flops,
                moved, library_ms=None) -> dict:
     """One entry of the kernels line; bound_ms from this run's inputs."""
-    t_ops, t_bytes = flops / PEAK_F32, moved / PEAK_BYTES
+    b_ms, by = bound(flops, moved)
     row = {"name": name, "route": "cuda",
            "source": f"flybody_tpu_torch/csrc/{source}",
            "replaces": replaces, "launches": launches, "max_abs_err": err,
-           "ms": k_ms, "plain_ms": p_ms,
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
            "library_ms": library_ms}
     print(f"kernel: {name} B={B} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
@@ -403,7 +422,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import numpy as np
-    from flybody_tpu_torch.fly_envs import walk_on_ball
+    from flybody_tpu_torch.fly_envs import walk_imitation, walk_on_ball
     from flybody_tpu_torch.ops import admm_kernel as AK
     from flybody_tpu_torch.ops import solver_kernels as SK
     from flybody_tpu_torch.ops import tree_ldl as TL
@@ -415,6 +434,7 @@ def main() -> int:
     from flybody_tpu_torch.envs.core import FlyEnv
     from flybody_tpu_torch.envs.walker import FlyWalker
     from flybody_tpu_torch.physics import io_mj
+    from flybody_tpu_torch.tasks import walk_imitation as WI
     from flybody_tpu_torch.tasks import walk_on_ball as WOB
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -501,10 +521,10 @@ def main() -> int:
     cpu = {dt_: WOB.make_walk_on_ball("cpu", dtype=dt_).model
            for dt_ in (f32, f64)}
 
-    def substep_check(label, model_card, solver):
-        """One substep of the 4 small envs on the card against the CPU in
-        float32 (bounds raised by the CPU's float32-to-float64 distance).
-        Returns the card's Data."""
+    def substep_check(label, model_card, solver, small=small, cpu=cpu):
+        """One substep of the 4 ``small`` envs on the card against the CPU
+        models ``cpu`` in float32 (bounds raised by the CPU's float32-to-
+        float64 distance). Returns the card's Data."""
         mc = with_solver(model_card, solver)
         out = F.step(mc, bridge.data_from_numpy(small, mc))
         ref = {}
@@ -800,17 +820,124 @@ def main() -> int:
     print(f"kernel: solve_rows launches {launched['solve_rows']} on the main "
           f"path, {train_launched['solve_rows']} in training", flush=True)
 
-    # ---- 9. result -------------------------------------------------------
+    # ---- 9. walk_imitation -----------------------------------------------
+    env_i = walk_imitation()
+    mi = env_i.model
+    lo_i, hi_i = env_i.action_spec()
+    mid_i = torch.as_tensor((lo_i + hi_i) / 2, dtype=f32,
+                            device=dev)[None].expand(B, -1)
+    gen = torch.Generator(dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_i = env_i.reset(B, gen)
+    torch.cuda.synchronize()
+    reset_i = time.perf_counter() - t0
+    state_i = env_i.autoreset_step(state_i, mid_i)    # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(IMIT_STEPS):
+        state_i = env_i.autoreset_step(state_i, mid_i)
+    torch.cuda.synchronize()
+    dt_i = time.perf_counter() - t0
+    launched_i = counts()
+    print(f"imitation: walk_imitation B={B} reset {reset_i:.3f} s, "
+          f"{IMIT_STEPS} control steps in {dt_i:.3f} s = "
+          f"{B * IMIT_STEPS / dt_i:.1f} env-steps/s "
+          f"({1e3 * dt_i / IMIT_STEPS:.1f} ms per control step) | {smi}",
+          flush=True)
+    print(f"imitation: launches {launched_i} (expected solve_rows "
+          f"{IMIT_STEPS * env_i.n_substeps}, the others 0)", flush=True)
+    if launched_i != dict({k: 0 for k in wrappers},
+                          solve_rows=IMIT_STEPS * env_i.n_substeps):
+        fail("imitation: solve_rows was not launched once per substep")
+    for k, v in state_i.obs.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"imitation obs {k} not finite")
+    if not bool(torch.isfinite(state_i.reward).all()):
+        fail("imitation reward not finite")
+    print(f"imitation: obs {len(state_i.obs)} keys, "
+          f"{sum(v.shape[1] for v in state_i.obs.values())} floats per env, "
+          f"all finite; reward mean {state_i.reward.mean().item():.4e}, done "
+          f"{int(state_i.done.sum())}, discount 0 in "
+          f"{int((state_i.discount == 0).sum())}", flush=True)
+    # the floor in contact: selected contacts with the floor geom on one
+    # side (in a plane pair the floor is geom 1) that penetrate, and those
+    # of them among the fused solver's cones
+    con = state_i.data.contact
+    floor = mi.names["geom"]["floor"]
+    pen = (con.g1 == floor) & (con.dist < 0)
+    lay = SF.fused_layout(mi, C.efc_meta(mi))
+    cone_rows = mi.ix(np.concatenate([np.arange(a, b)
+                                      for a, b in lay["cone"]]))
+    taken = torch.gather(pen, 0, cone_rows[state_i.data.sol_cone_sel.long()])
+    print(f"imitation: floor contacts selected "
+          f"{int((con.g1 == floor).sum()) / B:.2f} per env, penetrating "
+          f"{int(pen.sum()) / B:.2f} per env ({int((pen.sum(0) > 0).sum())} "
+          f"of {B} envs), among the solver's {lay['k_cone']} cones "
+          f"{int(taken.sum()) / B:.2f} per env", flush=True)
+    if not (int(pen.sum()) > 0 and int(taken.sum()) > 0):
+        fail("imitation: no penetrating floor contact reached the solver")
+
+    # one substep of 4 envs of the final state, card against CPU
+    small_i = bridge.to_numpy(state_i.data)
+    small_i = {k: ({kk: vv[..., :4] for kk, vv in v.items()}
+                   if isinstance(v, dict) else v[..., :4])
+               for k, v in small_i.items()}
+    cpu_i = {dt_: WI.make_walk_imitation("cpu", dtype=dt_).model
+             for dt_ in (f32, f64)}
+    substep_check("imitation", mi, "fused", small=small_i, cpu=cpu_i)
+
+    # solve_rows at 176 rows (the wide instance) on the final state
+    d_i = F.smooth_forward(mi, state_i.data)
+    prob_i = SF.assemble(mi, d_i)
+    args_i, kw_i = prob_i["args"], prob_i["kw"]
+    R_i = args_i["u6"].shape[0]
+    if R_i != 176 or SK.tile_cpl(R_i) != SK.CPL_WIDE:
+        fail(f"imitation: {R_i} rows, instance {SK.tile_cpl(R_i)}")
+    out_i, err_i = check_rows("imitation", mi.tree, args_i, kw_i)
+    k_ms_i = cuda_ms(lambda: SK.solve_rows(mi.tree, **args_i, **kw_i), 20)
+    p_ms_i = cuda_ms(lambda: SK.solve_rows_reference(mi.tree, **args_i,
+                                                     **kw_i), 3)
+    kw0_i = dict(kw_i, iterations=0, noslip_iterations=0, power_iters=0)
+    k0_ms_i = cuda_ms(lambda: SK.solve_rows(mi.tree, **args_i, **kw0_i), 20)
+    n_up_i, n_down_i = len(TL.flat_up(mi.tree)), len(TL.flat_down(mi.tree))
+    flops_i = SK.solve_rows_work(mi.nv, R_i, B, n_up_i, n_down_i,
+                                 kw_i["iterations"],
+                                 kw_i["noslip_iterations"],
+                                 kw_i["power_iters"])
+    b_ms_i, by_i = bound(flops_i, nbytes(*args_i.values(), *out_i))
+    print(f"kernel: solve_rows imitation (nv {mi.nv}, R {R_i}, n_up "
+          f"{n_up_i}) B={B} kernel {k_ms_i:.3f} ms, plain {p_ms_i:.3f} ms, "
+          f"bound {b_ms_i:.4f} ms ({by_i}: {flops_i / 1e9:.2f} GFLOP), "
+          f"launches {launched_i['solve_rows']} | {smi}", flush=True)
+    print(f"breakdown: solve_rows imitation {k_ms_i:.3f} ms; without the "
+          f"solver loop {k0_ms_i:.3f} ms; the loop {k_ms_i - k0_ms_i:.3f} ms",
+          flush=True)
+    rows["solve_rows"].update(
+        launches_imitation=launched_i["solve_rows"],
+        max_abs_err_imitation=err_i, ms_imitation=k_ms_i,
+        plain_ms_imitation=p_ms_i, bound_ms_imitation=b_ms_i,
+        bound_by_imitation=by_i)
+    del state_i, d_i, prob_i, args_i, out_i
+
+    # ---- 10. result ------------------------------------------------------
     nM = fly_args["ld"].shape[0]
     tabs = SK.pack_tables(m.tree)
     for name, info in (
             ("solve_rows", SK.kernel_info("solve_rows", m.nv, R, nM, tabs)),
+            ("solve_rows at walk_imitation",
+             SK.kernel_info("solve_rows", mi.nv, R_i, mi.tree.nM,
+                            SK.pack_tables(mi.tree))),
             ("upsolve_build_yd / upsolve_yd",
              SK.kernel_info("upsolve", m.nv, R, nM, tabs)),
             ("apgd_iterate", SK.kernel_info("apgd_iterate", m.nv, R, nM,
                                             tabs)),
             ("admm_iterate", AK.kernel_info(n_rows))):
-        print(f"occupancy: {name}: {info['regs']} registers per thread, "
+        cpl = (f" ({info['cpl']} columns per lane)" if "cpl" in info
+               else "")
+        print(f"occupancy: {name}{cpl}: {info['regs']} registers per "
+              f"thread, {info['local_bytes']} B local (spill) per thread, "
               f"shared memory {info['static_smem']} B static + "
               f"{info['dynamic_smem']} B dynamic per block, "
               f"{info['blocks_per_sm']} blocks per SM", flush=True)

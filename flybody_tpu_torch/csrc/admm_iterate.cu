@@ -262,9 +262,10 @@ extern "C" int admm_launch(const float* W, const float* b, const float* z0,
     return (int)cudaGetLastError();
 }
 
-// Registers per thread, static and dynamic shared memory per block and
-// resident blocks per SM of the kernel (`which` is 0) at `threads` threads
-// and `smem_bytes` of dynamic shared memory.
+// Registers per thread, static and dynamic shared memory per block,
+// resident blocks per SM and local (spill) memory per thread of the kernel
+// (`which` is 0) at `threads` threads and `smem_bytes` of dynamic shared
+// memory.
 extern "C" int fb_kernel_info(int which, int threads, int smem_bytes,
                               int* out) {
     if (which != 0) return (int)cudaErrorInvalidValue;
@@ -282,6 +283,7 @@ extern "C" int fb_kernel_info(int which, int threads, int smem_bytes,
     out[1] = (int)a.sharedSizeBytes;
     out[2] = smem_bytes;
     out[3] = n;
+    out[4] = (int)a.localSizeBytes;
     return 0;
 }
 

@@ -34,11 +34,15 @@
 // kernels write or read Yd (261 MB at B=4096, 0.08 ms), so
 // upsolve_build_yd and upsolve_yd are bound by bytes and apgd_iterate,
 // with its 29 applications, by arithmetic (ops/solver_kernels.*_work).
+// At walk_imitation's shapes (the free fly: nv 108, R 176, nM 1213, 1105
+// up and 1105 down triplets) solve_rows is 3.05 MFLOP per env, 12.5
+// GFLOP at B=4096, a 0.187 ms bound, again by arithmetic.
 //
 // Design. 256 threads (8 warps) per env; registers allow two blocks per
-// SM. Inputs arrive batch-minor (env axis last), so one env's values sit
-// B apart and are read strided, one 32-byte sector per word (~0.6 GB of
-// sectors at B=4096); the wrappers make no env-major copies.
+// SM (the narrow instance, below). Inputs arrive batch-minor (env axis
+// last), so one env's values sit B apart and are read strided, one
+// 32-byte sector per word (~0.6 GB of sectors at B=4096); the wrappers
+// make no env-major copies.
 //  - Steps 1-3, column per thread: thread r builds column r of J^T in
 //    shared memory (odd row stride R | 1, conflict-free) with the rhs dots
 //    in the same pass, then runs the up-sweep down its column. The body
@@ -50,13 +54,20 @@
 //    descendants' final values, so no step waits on another step's store
 //    and a step is two independent shared loads and an FMA.
 //  - Steps 4-6 with Yd in registers: warp w holds dofs 14 w .. 14 w + 13,
-//    lane l columns l, l + 32, ..., l + 128 (70 floats a thread, so
-//    nv <= 112 and R <= 160; the ragged edges hold zeros). Yd x is 70
-//    register FMAs a thread and a 16-shuffle reduce-scatter inside the
-//    warp (no block barrier: a warp's dofs see every column); Yd^T y
-//    reuses the same registers and sums the 8 warps' partials through
-//    shared memory. No Yd element is loaded from shared memory in the
-//    loop.
+//    lane l columns l, l + 32, ..., l + 32 (CPL - 1) (14 CPL floats a
+//    thread, so nv <= 112 and R <= 32 CPL; the ragged edges hold zeros).
+//    Yd x is 14 CPL register FMAs a thread and a 16-shuffle
+//    reduce-scatter inside the warp (no block barrier: a warp's dofs see
+//    every column); Yd^T y reuses the same registers and sums the 8
+//    warps' partials through shared memory. No Yd element is loaded from
+//    shared memory in the loop.
+//  - Two instances of every kernel, by the register tile's width: CPL 5
+//    (R <= 160, walk_on_ball's 152 rows; registers and shared memory let
+//    two blocks share an SM) and CPL 6 (R <= 192, walk_imitation's 176
+//    rows; its ~118 kB of shared memory leave one block per SM, so it is
+//    built for one and its 84 tile floats a thread fit without spilling).
+//    The launchers pick the narrower instance that takes R; the row
+//    vectors and the warp partials are sized by the instance's 32 CPL.
 //  - The row vectors (z, z - z_prev, s, ...) live in shared memory; thread
 //    u < kl + kc owns a unit, one limit row or one cone's three rows, so
 //    the projection needs no exchange. The restart test's and the power
@@ -68,7 +79,7 @@
 //    target dof, in the up-sweep's order) on warps 0-3, and L^{-1} level
 //    by level on warp 4 (one lane per dof of a level).
 // What bounds it now (PERF.md): latency more than throughput, with
-// 16 warps per SM (registers) to hide it: the two barriers and the serial
+// 16 warps per SM (registers; 8 in the wide instance) to hide it: the two barriers and the serial
 // owner step of each of the 29 applications (~0.64 ms of the 1.36 ms at
 // walk_on_ball shapes), the strided input loads, and the up-sweep's chain
 // of 105 dependent dof updates per column. The sums are taken in another
@@ -81,16 +92,21 @@ namespace {
 constexpr int NWARP = 8;
 constexpr int NT = 32 * NWARP;        // threads per block
 constexpr int DPW = 14;               // dofs per warp in the register tile
-constexpr int CPL = 5;                // columns per lane
 constexpr int MAX_NV = NWARP * DPW;   // 112
-constexpr int MAX_R = 32 * CPL;       // 160
+constexpr int CPL_NARROW = 5;         // columns per lane: R <= 160
+constexpr int CPL_WIDE = 6;           // R <= 192
 constexpr int YW = 16;                // y slots per warp (DPW padded)
 constexpr int NRED = 4 * NWARP;       // four sets of warp partials
 constexpr unsigned FULL = 0xffffffffu;
 
+// Rows an instance takes: one column per lane and tile column.
+template <int CPL>
+__host__ __device__ constexpr int max_r() { return 32 * CPL; }
+
 static_assert(MAX_NV <= 128, "dof indices are packed in 7 bits, masks in "
                              "4 words");
-static_assert(MAX_R <= NT && MAX_NV <= NT, "one thread per column or dof");
+static_assert(max_r<CPL_WIDE>() <= NT && MAX_NV <= NT,
+              "one thread per column or dof");
 
 __device__ __forceinline__ int trip_i(int p) { return p & 127; }
 __device__ __forceinline__ int trip_j(int p) { return (p >> 7) & 127; }
@@ -139,7 +155,8 @@ __device__ Tab tab_at(const int* t, int nv, int n_up, int n_down,
 }
 
 // The block's dynamic shared memory, the same carve-up for every kernel
-// here (ops/solver_kernels.smem_bytes mirrors it).
+// here, with MR = max_r<CPL>() of the instance
+// (ops/solver_kernels.smem_bytes mirrors it).
 struct Smem {
     float *ys, *gpart, *red, *d6, *Yd, *ld, *qv, *qs, *sqd, *sqm, *ystar,
         *xq;
@@ -152,12 +169,14 @@ struct Smem {
     int* ioff;
 };
 
+template <int CPL>
 __device__ Smem carve(float* sm, int nv, int S, int nM, int ntab,
                       int n_up) {
+    constexpr int MR = max_r<CPL>();
     Smem p;
     p.ys = sm;                        // NWARP * YW (16-byte aligned)
-    p.gpart = p.ys + NWARP * YW;      // NWARP * MAX_R
-    p.red = p.gpart + NWARP * MAX_R;  // NRED
+    p.gpart = p.ys + NWARP * YW;      // NWARP * MR
+    p.red = p.gpart + NWARP * MR;     // NRED
     p.d6 = p.red + NRED;              // 6 nv (8-byte aligned)
     p.Yd = p.d6 + 6 * nv;             // nv * S
     p.ld = p.Yd + nv * S;             // nM
@@ -167,15 +186,15 @@ __device__ Smem carve(float* sm, int nv, int S, int nM, int ntab,
     p.sqm = p.sqd + nv;
     p.ystar = p.sqm + nv;
     p.xq = p.ystar + nv;
-    p.dsh = p.xq + nv;                // MAX_R each
-    p.bs = p.dsh + MAX_R;
-    p.s2r = p.bs + MAX_R;
-    p.act = p.s2r + MAX_R;
-    p.vs = p.act + MAX_R;
-    p.zs = p.vs + MAX_R;
-    p.dz = p.zs + MAX_R;
-    p.ss = p.dz + MAX_R;
-    p.tab = reinterpret_cast<int*>(p.ss + MAX_R);   // ntab
+    p.dsh = p.xq + nv;                // MR each
+    p.bs = p.dsh + MR;
+    p.s2r = p.bs + MR;
+    p.act = p.s2r + MR;
+    p.vs = p.act + MR;
+    p.zs = p.vs + MR;
+    p.dz = p.zs + MR;
+    p.ss = p.dz + MR;
+    p.tab = reinterpret_cast<int*>(p.ss + MR);       // ntab
     p.ldv = reinterpret_cast<float*>(p.tab + ntab);  // n_up
     p.ioff = p.tab + ntab + n_up;                    // n_up
     return p;
@@ -312,6 +331,7 @@ __device__ void row_inputs(const Smem& p, bool row, int r, float diag,
 
 // The register tile of Yd from shared memory (zeros past nv and R). A
 // barrier must precede.
+template <int CPL>
 __device__ __forceinline__ void load_tiles(const Smem& p,
                                            float (&yd)[DPW][CPL], int nv,
                                            int R, int S) {
@@ -344,7 +364,7 @@ __device__ __forceinline__ void rs_step(float (&pt)[YW], int lane) {
 // Yd x for this warp's dofs, x(col) for col < R: the sum for dof
 // 14 w + k lands in lanes 2k and 2k + 1 (a butterfly reduce-scatter over
 // 16 slots: 8 + 4 + 2 + 1 + 1 shuffles).
-template <class X>
+template <int CPL, class X>
 __device__ __forceinline__ float mv_y(const float (&yd)[DPW][CPL], X x,
                                       int R) {
     const int lane = threadIdx.x & 31;
@@ -373,6 +393,7 @@ __device__ __forceinline__ float mv_y(const float (&yd)[DPW][CPL], X x,
 
 // The warp's y (from mv_y) into its slots of ys, then this lane's
 // partials of Yd^T y into gpart[w][col].
+template <int CPL>
 __device__ __forceinline__ void mv_g(const Smem& p,
                                      const float (&yd)[DPW][CPL], float yk) {
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -394,12 +415,12 @@ __device__ __forceinline__ void mv_g(const Smem& p,
         float g = yd[0][c] * y[0];
 #pragma unroll
         for (int k = 1; k < DPW; ++k) g = fmaf(yd[k][c], y[k], g);
-        p.gpart[w * MAX_R + lane + 32 * c] = g;
+        p.gpart[w * max_r<CPL>() + lane + 32 * c] = g;
     }
 }
 
 // The warp partials of Yd^T Yd x into gpart, then the barrier.
-template <class X>
+template <int CPL, class X>
 __device__ __forceinline__ void apply(const Smem& p,
                                       const float (&yd)[DPW][CPL], X x,
                                       int R) {
@@ -408,10 +429,11 @@ __device__ __forceinline__ void apply(const Smem& p,
 }
 
 // (Yd^T Yd x)[r] from the warp partials (after apply's barrier).
+template <int CPL>
 __device__ __forceinline__ float gsum(const Smem& p, int r) {
     float g = 0.0f;
 #pragma unroll
-    for (int w = 0; w < NWARP; ++w) g += p.gpart[w * MAX_R + r];
+    for (int w = 0; w < NWARP; ++w) g += p.gpart[w * max_r<CPL>() + r];
     return g;
 }
 
@@ -448,6 +470,7 @@ __device__ __forceinline__ void project(float (&z)[3], int nr, float m,
 // Steps 4-6 with Yd in registers, from the row vectors row_inputs wrote
 // (after a barrier); then f and v out and y* = Yd f into p.ystar (ends
 // with a barrier).
+template <int CPL>
 __device__ __forceinline__ void apgd(const Smem& p,
                                      const float (&yd)[DPW][CPL], int nv,
                                      const Rows& rw, const float* mu, int B,
@@ -516,7 +539,7 @@ __device__ __forceinline__ void apgd(const Smem& p,
                 if (j >= nr) break;
                 const int r = rows[j];
                 const float vn = p.vs[r] / nrm;
-                const float v = (p.ss[r] * gsum(p, r) + p.s2r[r] * vn)
+                const float v = (p.ss[r] * gsum<CPL>(p, r) + p.s2r[r] * vn)
                                 * p.act[r];
                 p.vs[r] = v;
                 vpart += v * v;
@@ -553,7 +576,7 @@ __device__ __forceinline__ void apgd(const Smem& p,
                 const int r = rows[j];
                 zo[j] = p.zs[r];
                 const float y = zo[j] + beta * p.dz[r];
-                g[j] = p.ss[r] * gsum(p, r) + p.s2r[r] * y - p.bs[r];
+                g[j] = p.ss[r] * gsum<CPL>(p, r) + p.s2r[r] * y - p.bs[r];
                 z[j] = y - inv_l * g[j];
             }
             project(z, nr, m, p.act, rows, false);
@@ -581,7 +604,7 @@ __device__ __forceinline__ void apgd(const Smem& p,
                 for (int j = 0; j < 3; ++j) {
                     if (j >= nr) break;
                     const int r = rows[j];
-                    const float g = p.ss[r] * gsum(p, r) - p.bs[r];
+                    const float g = p.ss[r] * gsum<CPL>(p, r) - p.bs[r];
                     z[j] = r < kl + kc ? p.zs[r]
                                        : p.zs[r] - inv_l * pns * g;
                 }
@@ -610,7 +633,17 @@ __device__ __forceinline__ void apgd(const Smem& p,
     __syncthreads();
 }
 
-__global__ void __launch_bounds__(NT, 2) solve_rows_kernel(
+// Blocks per SM each instance is built for: two of the narrow one (its
+// ~91 kB of shared memory at walk_on_ball allow two), one of the wide one
+// (~118 kB at walk_imitation allow one, and its 84 tile floats a thread
+// then need no spill).
+template <int CPL>
+__host__ __device__ constexpr int min_blocks() {
+    return CPL == CPL_NARROW ? 2 : 1;
+}
+
+template <int CPL>
+__global__ void __launch_bounds__(NT, min_blocks<CPL>()) solve_rows_kernel(
     const float* __restrict__ d6, const float* __restrict__ u6,
     const int* __restrict__ b1, const int* __restrict__ b2,
     const float* __restrict__ lim_sign, const int* __restrict__ lim_dadr,
@@ -631,7 +664,7 @@ __global__ void __launch_bounds__(NT, 2) solve_rows_kernel(
     const int r = threadIdx.x;
     const Rows rw{R, kl, kc, R | 1};
     const int ntab = nv + 1 + n_up + n_down + nseg + 1 + nlev + 1;
-    const Smem p = carve(sm, nv, rw.S, nM, ntab, n_up);
+    const Smem p = carve<CPL>(sm, nv, rw.S, nM, ntab, n_up);
     stage_env(p, ld, d6, qvel, qacc_smooth, dinv, tab, ntab, nv, nM, n_up,
               rw.S, B, b);
     const Tab tb = tab_at(p.tab, nv, n_up, n_down, nseg);
@@ -692,6 +725,7 @@ __global__ void __launch_bounds__(NT, 2) solve_rows_kernel(
 
 // Steps 1-3 (build = 1) or 2-3 on jt (build = 0); writes yd (nv, R, B) and
 // b (R, B).
+template <int CPL>
 __global__ void __launch_bounds__(NT) upsolve_kernel(
     int build, const float* __restrict__ jt, const float* __restrict__ d6,
     const float* __restrict__ u6, const int* __restrict__ b1,
@@ -708,7 +742,7 @@ __global__ void __launch_bounds__(NT) upsolve_kernel(
     const int r = threadIdx.x;
     const int S = R | 1;
     // the head of the tables: cptr | cidx
-    const Smem p = carve(sm, nv, S, nM, nv + 1 + n_up, n_up);
+    const Smem p = carve<CPL>(sm, nv, S, nM, nv + 1 + n_up, n_up);
     stage_env(p, ld, build ? d6 : nullptr, qvel, qacc_smooth, dinv, tab,
               nv + 1 + n_up, nv, nM, n_up, S, B, b);
     const Tab tb = tab_at(p.tab, nv, n_up, 0, 0);
@@ -733,7 +767,8 @@ __global__ void __launch_bounds__(NT) upsolve_kernel(
 
 // Steps 4-6 on a given Yd (nv, R, B); writes f, v (R, B) and
 // ystar = Yd f (nv, B).
-__global__ void __launch_bounds__(NT, 2) apgd_kernel(
+template <int CPL>
+__global__ void __launch_bounds__(NT, min_blocks<CPL>()) apgd_kernel(
     const float* __restrict__ yd_in, const float* __restrict__ bvec_in,
     const float* __restrict__ rreg, const float* __restrict__ active,
     const float* __restrict__ mu, const float* __restrict__ f0,
@@ -745,7 +780,7 @@ __global__ void __launch_bounds__(NT, 2) apgd_kernel(
     const int b = blockIdx.x;
     const int r = threadIdx.x;
     const Rows rw{R, kl, kc, R | 1};
-    const Smem p = carve(sm, nv, rw.S, 0, 0, 0);
+    const Smem p = carve<CPL>(sm, nv, rw.S, 0, 0, 0);
     for (int k = r; k < nv * R; k += NT) {   // neighbours read neighbours
         const int v = k / R, c = k - v * R;
         p.Yd[v * rw.S + c] = yd_in[k * B + b];
@@ -770,8 +805,12 @@ __global__ void __launch_bounds__(NT, 2) apgd_kernel(
 }
 
 bool shape_ok(int nv, int R, int B) {
-    return nv > 0 && nv <= MAX_NV && R > 0 && R <= MAX_R && B > 0;
+    return nv > 0 && nv <= MAX_NV && R > 0 && R <= max_r<CPL_WIDE>()
+           && B > 0;
 }
+
+// The narrower instance that takes R rows.
+bool narrow(int R) { return R <= max_r<CPL_NARROW>(); }
 
 bool rows_ok(int R, int kl, int kc) {
     return kl >= 0 && kc >= 0 && kl + 3 * kc == R;
@@ -798,9 +837,11 @@ extern "C" int solve_rows_launch(
     void* stream) {
     if (!shape_ok(nv, R, B) || !rows_ok(R, kl, kc))
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = set_smem(solve_rows_kernel, smem_bytes);
+    auto kernel = narrow(R) ? solve_rows_kernel<CPL_NARROW>
+                            : solve_rows_kernel<CPL_WIDE>;
+    cudaError_t e = set_smem(kernel, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    solve_rows_kernel<<<B, NT, smem_bytes, (cudaStream_t)stream>>>(
+    kernel<<<B, NT, smem_bytes, (cudaStream_t)stream>>>(
         d6, u6, b1, b2, lim_sign, lim_dadr, static_cast<const uint4*>(mbits),
         ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr, rreg, active, mu,
         f0, v0, f_out, v_out, qfrc_out, dqacc_out, tab, nv, R, B, nM, kl, kc,
@@ -819,9 +860,11 @@ extern "C" int upsolve_launch(
     const int* tab, int nv, int R, int B, int nM, int n_up, int smem_bytes,
     void* stream) {
     if (!shape_ok(nv, R, B)) return (int)cudaErrorInvalidValue;
-    cudaError_t e = set_smem(upsolve_kernel, smem_bytes);
+    auto kernel = narrow(R) ? upsolve_kernel<CPL_NARROW>
+                            : upsolve_kernel<CPL_WIDE>;
+    cudaError_t e = set_smem(kernel, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    upsolve_kernel<<<B, NT, smem_bytes, (cudaStream_t)stream>>>(
+    kernel<<<B, NT, smem_bytes, (cudaStream_t)stream>>>(
         build, jt, d6, u6, b1, b2, lim_sign, lim_dadr,
         static_cast<const uint4*>(mbits), ld, dinv, qacc_smooth, qvel, kcoef,
         bcoef, posr, yd_out, b_out, tab, nv, R, B, nM, n_up);
@@ -836,22 +879,31 @@ extern "C" int apgd_launch(
     void* stream) {
     if (!shape_ok(nv, R, B) || !rows_ok(R, kl, kc))
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = set_smem(apgd_kernel, smem_bytes);
+    auto kernel = narrow(R) ? apgd_kernel<CPL_NARROW>
+                            : apgd_kernel<CPL_WIDE>;
+    cudaError_t e = set_smem(kernel, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    apgd_kernel<<<B, NT, smem_bytes, (cudaStream_t)stream>>>(
+    kernel<<<B, NT, smem_bytes, (cudaStream_t)stream>>>(
         yd, b, rreg, active, mu, f0, v0, f_out, ystar_out, v_out, nv, R, B,
         kl, kc, iterations, noslip, power_iters);
     return (int)cudaGetLastError();
 }
 
-// Registers per thread, static and dynamic shared memory per block and
-// resident blocks per SM of kernel `which` (0 solve_rows, 1 upsolve,
-// 2 apgd) at `threads` threads and `smem_bytes` of dynamic shared memory.
+// Registers per thread, static and dynamic shared memory per block,
+// resident blocks per SM and local (spill) memory per thread of kernel
+// `which` (0 solve_rows, 1 upsolve, 2 apgd; plus 3 for the wide instance)
+// at `threads` threads and `smem_bytes` of dynamic shared memory.
 extern "C" int fb_kernel_info(int which, int threads, int smem_bytes,
                               int* out) {
-    const void* k = which == 0   ? (const void*)solve_rows_kernel
-                    : which == 1 ? (const void*)upsolve_kernel
-                                 : (const void*)apgd_kernel;
+    const void* kernels[6] = {
+        (const void*)solve_rows_kernel<CPL_NARROW>,
+        (const void*)upsolve_kernel<CPL_NARROW>,
+        (const void*)apgd_kernel<CPL_NARROW>,
+        (const void*)solve_rows_kernel<CPL_WIDE>,
+        (const void*)upsolve_kernel<CPL_WIDE>,
+        (const void*)apgd_kernel<CPL_WIDE>};
+    if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
+    const void* k = kernels[which];
     cudaError_t e = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     cudaFuncAttributes a;
@@ -865,6 +917,7 @@ extern "C" int fb_kernel_info(int which, int threads, int smem_bytes,
     out[1] = (int)a.sharedSizeBytes;
     out[2] = smem_bytes;
     out[3] = n;
+    out[4] = (int)a.localSizeBytes;
     return 0;
 }
 

@@ -80,8 +80,13 @@ class Task:
 
 
 def _map(fn, *trees):
-    """Apply fn leaf-wise over matching dicts / tuples / tensors."""
+    """Apply fn leaf-wise over matching dicts / tuples / dataclasses /
+    tensors."""
     t0 = trees[0]
+    if dataclasses.is_dataclass(t0):
+        return dataclasses.replace(t0, **{
+            f.name: _map(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(t0)})
     if isinstance(t0, dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (tuple, list)):
@@ -125,10 +130,13 @@ class FlyEnv:
         lo, hi = self.task.action_bounds(self.model)
         return np.asarray(lo), np.asarray(hi)
 
-    def reset(self, B: int, generator: torch.Generator | None = None):
-        """Batched EnvState of B fresh episodes."""
+    def reset(self, B: int, generator: torch.Generator | None = None,
+              **init_kw):
+        """Batched EnvState of B fresh episodes; ``init_kw`` goes to the
+        task's ``init_state`` (e.g. walk_imitation's ``traj_idx``)."""
         data = io_mj.make_data(self.model, B=B, dtype=self.dtype)
-        data, task_state = self.task.init_state(self.model, data, generator)
+        data, task_state = self.task.init_state(self.model, data, generator,
+                                                **init_kw)
         data = F.fwd_position(self.model, data)
         data = F.fwd_velocity(self.model, data)
         obs = self.task.observations(self.model, data, task_state,

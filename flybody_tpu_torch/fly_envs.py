@@ -4,6 +4,7 @@ Each factory returns a batched ``FlyEnv`` on a CUDA device unless the
 caller names another device:
 
     env = walk_on_ball()                    # cuda
+    env = walk_imitation(device="cpu")      # the CPU, when asked for
     state = env.reset(4096)
     state = env.autoreset_step(state, actions)
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from flybody_tpu_torch.tasks.walk_imitation import make_walk_imitation
 from flybody_tpu_torch.tasks.walk_on_ball import make_walk_on_ball
 
 
@@ -30,3 +32,11 @@ def walk_on_ball(device=None, dtype=torch.float32, time_limit: float = 2.0):
     """Tethered fly walking on a floating ball."""
     return make_walk_on_ball(default_device(device), dtype=dtype,
                              time_limit=time_limit)
+
+
+def walk_imitation(device=None, ref_path: str | None = None,
+                   time_limit: float = 10.0, dtype=torch.float32):
+    """The free fly on a flat floor tracking reference walking snippets
+    (the synthetic dataset unless ``ref_path`` names an HDF5 file)."""
+    return make_walk_imitation(default_device(device), dtype=dtype,
+                               ref_path=ref_path, time_limit=time_limit)

@@ -115,17 +115,18 @@ def error_string(code: int, name: str) -> str:
 def kernel_info(name: str, which: int, threads: int,
                 smem_bytes: int) -> dict:
     """Registers per thread, static and dynamic shared memory per block
-    (bytes) and resident blocks per SM of kernel ``which`` of library
-    ``name`` at ``threads`` threads and ``smem_bytes`` of dynamic shared
-    memory (``cudaFuncGetAttributes`` and
+    (bytes), resident blocks per SM and local memory per thread (bytes; 0
+    when nothing spills) of kernel ``which`` of library ``name`` at
+    ``threads`` threads and ``smem_bytes`` of dynamic shared memory
+    (``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     fn = load(name).fb_kernel_info
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     err = fn(which, threads, smem_bytes, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"{name}: kernel_info({which}) failed: CUDA error "
                            f"{err} ({error_string(err, name)})")
     return dict(regs=out[0], static_smem=out[1], dynamic_smem=out[2],
-                blocks_per_sm=out[3])
+                blocks_per_sm=out[3], local_bytes=out[4])

@@ -243,17 +243,23 @@ def apgd_iterate_work(nv: int, R: int, B: int, iterations: int,
 
 
 def random_rows_problem(B: int, seed: int = 0, nv: int = 105,
-                        nbody: int = 69, kl: int = 32, kc: int = 40) -> dict:
+                        nbody: int = 69, kl: int = 32, kc: int = 40,
+                        parent=None) -> dict:
     """Random compact-row inputs at the walk_on_ball shapes, built as the
     JAX package's tools/check_solve_rows.py builds them (numpy, seeded).
+    ``parent`` (a model's dof_parentid) replaces the built-in dof tree and
+    sets nv.
 
     Returns numpy arrays keyed by ``solve_rows`` argument name, plus
     ``parent`` (the dof tree) and ``Ms`` (a compressed SPD tree matrix,
     (nM, B)) that the caller factors into ``ld``/``dinv``."""
     rng = np.random.RandomState(seed)
-    parent = np.full(nv, -1, np.int32)
-    for i in range(1, nv):
-        parent[i] = i - 1 if i % 7 else max(0, i - 7)
+    if parent is None:
+        parent = np.full(nv, -1, np.int32)
+        for i in range(1, nv):
+            parent[i] = i - 1 if i % 7 else max(0, i - 7)
+    parent = np.asarray(parent, np.int32)
+    nv = len(parent)
     tree = TL.build_tree_meta(parent)
     R = kl + 3 * kc
     M = np.eye(nv) * 3.0
@@ -310,11 +316,20 @@ _ARGTYPES = {
 }
 
 # The kernels' shape limits (csrc/solve_rows.cu): 256 threads per env, Yd
-# held in registers as 8 warps x 14 dofs by 32 lanes x 5 columns. Within
-# them shared memory stays under 215 kB per block (a chain of 112 dofs).
+# held in registers as 8 warps x 14 dofs by 32 lanes x CPL columns, in two
+# instances: CPL 5 takes R <= 160 rows, CPL 6 R <= 192. A launch takes the
+# narrower instance that holds R. Within them shared memory stays under
+# 227 kB per block (a chain of 112 dofs at 192 rows).
 THREADS = 256
 MAX_NV = 112
-MAX_R = 160
+CPL_NARROW, CPL_WIDE = 5, 6
+MAX_R_NARROW = 32 * CPL_NARROW
+MAX_R = 32 * CPL_WIDE
+
+
+def tile_cpl(R: int) -> int:
+    """Columns per lane of the kernel instance that takes R rows."""
+    return CPL_NARROW if R <= MAX_R_NARROW else CPL_WIDE
 
 
 def _launcher(name: str):
@@ -445,13 +460,15 @@ def on_cpu(who: str, x: torch.Tensor) -> bool:
 
 def smem_bytes(nv: int, R: int, nM: int, n_tab: int, n_up: int) -> int:
     """Dynamic shared memory of one block, in bytes. Mirrors the kernels'
-    carve-up (``carve`` in csrc/solve_rows.cu): per-warp y slots, the
-    warp partials of Yd^T y and of the block sums, d6, Yd with an odd row
+    carve-up (``carve`` in csrc/solve_rows.cu) in the instance that takes
+    R rows (32 ``tile_cpl(R)`` of them): per-warp y slots, the warp
+    partials of Yd^T y and of the block sums, d6, Yd with an odd row
     stride, ld, six dof vectors, eight row vectors, the n_tab words of
     tables and the n_up up-sweep entries decoded (L[e], i * S)."""
     nwarp = THREADS // 32
-    return 4 * (nwarp * 16 + nwarp * MAX_R + 4 * nwarp + 6 * nv
-                + nv * (R | 1) + nM + 6 * nv + 8 * MAX_R + n_tab + 2 * n_up)
+    mr = 32 * tile_cpl(R)
+    return 4 * (nwarp * 16 + nwarp * mr + 4 * nwarp + 6 * nv
+                + nv * (R | 1) + nM + 6 * nv + 8 * mr + n_tab + 2 * n_up)
 
 
 def check_shape(who: str, nv: int, R: int) -> None:
@@ -462,14 +479,18 @@ def check_shape(who: str, nv: int, R: int) -> None:
 
 
 def kernel_info(kernel: str, nv: int, R: int, nM: int, tables: dict) -> dict:
-    """Registers, shared memory and resident blocks per SM of ``kernel``
-    ("solve_rows", "upsolve" or "apgd_iterate") at these shapes, with the
-    tree's ``pack_tables`` (``cuda_build.kernel_info``)."""
+    """Registers, shared memory, resident blocks per SM and local (spill)
+    bytes per thread of ``kernel`` ("solve_rows", "upsolve" or
+    "apgd_iterate") in the instance that takes R rows, at these shapes,
+    with the tree's ``pack_tables`` (``cuda_build.kernel_info``)."""
     which = ("solve_rows", "upsolve", "apgd_iterate").index(kernel)
     n_up = tables["n_up"]
     smem = (smem_bytes(nv, R, nM, tables["n_tab"], n_up), smem_bytes(
         nv, R, nM, nv + 1 + n_up, n_up), smem_bytes(nv, R, 0, 0, 0))[which]
-    return cuda_build.kernel_info("solve_rows", which, THREADS, smem)
+    if tile_cpl(R) == CPL_WIDE:
+        which += 3
+    return dict(cuda_build.kernel_info("solve_rows", which, THREADS, smem),
+                cpl=tile_cpl(R))
 
 
 def _row_checks(nv, R, B, nbody, nM, d6, u6, b1, b2, lim_sign, lim_dadr,

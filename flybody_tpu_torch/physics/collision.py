@@ -13,8 +13,9 @@ idiom); here they are per-env index gathers (ops/rows), and the top-K is a
 stable sort so ties resolve to the lower index exactly as ``lax.top_k``.
 
 Analytic pair functions ported: sphere-sphere, sphere-capsule and
-capsule-capsule (the pairs of the walk_on_ball model). Any other analytic
-pair raises NotImplementedError.
+capsule-capsule (the pairs of the walk_on_ball model), and plane-sphere,
+plane-capsule, plane-ellipsoid and plane-cylinder (the floor pairs of
+walk_imitation). The box and heightfield pairs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -52,6 +53,73 @@ def make_frame(n):
 # Each narrowphase fn: (p1, M1, s1, p2, M2, s2) with p (P, 3, B),
 # M (P, 3, 3, B), s (P, 3, 1|B) -> (dist (P, k, B), pos (P, k, 3, B),
 # normal (P, k, 3, B)) with k static contacts per pair.
+
+
+def _plane_sphere(p1, m1, s1, p2, m2, s2):
+    n = m1[..., :, 2, :]                       # plane z axis (P, 3, B)
+    dctr = _dot(n, p2 - p1)[..., 0, :]         # (P, B)
+    dist = dctr - s2[..., 0, :]
+    pos = p2 - n * (s2[..., 0:1, :] + 0.5 * dist[..., None, :])
+    return dist[:, None], pos[:, None], n[:, None]
+
+
+def _plane_capsule(p1, m1, s1, p2, m2, s2):
+    n = m1[..., :, 2, :]
+    axis = m2[..., :, 2, :]
+    r = s2[..., 0:1, :]
+    hl = s2[..., 1:2, :]
+    dists, poss = [], []
+    for sgn in (1.0, -1.0):
+        c = p2 + sgn * hl * axis
+        dd = _dot(n, c - p1) - r
+        dists.append(dd[..., 0, :])
+        poss.append(c - n * (r + 0.5 * dd))
+    return (torch.stack(dists, dim=1), torch.stack(poss, dim=1),
+            torch.stack([n, n], dim=1))
+
+
+def _plane_ellipsoid(p1, m1, s1, p2, m2, s2):
+    n = m1[..., :, 2, :]
+    nl = bq.matvec_t(m2, n)                    # (P, 3, B)
+    support_l = -(s2 * s2 * nl) / torch.clamp(_norm(s2 * nl), min=1e-12)
+    sp = p2 + bq.matvec(m2, support_l)
+    dd = _dot(n, sp - p1)
+    pos = sp - 0.5 * dd * n
+    return dd[..., 0, :][:, None], pos[:, None], n[:, None]
+
+
+def _plane_cylinder(p1, m1, s1, p2, m2, s2):
+    """Plane vs cylinder: deepest rim points of both caps + one extra
+    lower-cap rim point (stabilizes the near-upright case)."""
+    n = m1[..., :, 2, :]
+    a = m2[..., :, 2, :]
+    r = s2[..., 0:1, :]
+    h = s2[..., 1:2, :]
+    na = _dot(n, a)
+    u = n - na * a
+    u_norm = _norm(u)
+    # an upright cylinder has no deepest rim direction: any unit vector
+    # normal to the axis (both branches evaluated, as in the JAX package)
+    ex = torch.zeros_like(a)
+    ex[..., 0, :] = 1.0
+    ey = torch.zeros_like(a)
+    ey[..., 1, :] = 1.0
+    alt = torch.where(torch.abs(a[..., 0:1, :]) < 0.5, ex, ey)
+    alt = alt - _dot(alt, a) * a
+    alt = alt / torch.clamp(_norm(alt), min=1e-12)
+    u = torch.where(u_norm > 1e-9, u / torch.clamp(u_norm, min=1e-12), alt)
+    w = bq.cross(a, u)
+    sgn = torch.where(na > 0, -torch.ones_like(na), torch.ones_like(na))
+    c_low = p2 + sgn * h * a
+    c_high = p2 - sgn * h * a
+    pts = torch.stack([
+        c_low - r * u,
+        c_high - r * u,
+        c_low - r * (-0.5 * u + 0.8660254 * w),
+    ], dim=1)                                   # (P, 3pts, 3, B)
+    dd = torch.sum(pts * n[:, None], dim=-2) - _dot(p1, n)  # (P, 3pts, B)
+    pos = pts - 0.5 * dd[..., None, :] * n[:, None]
+    return dd, pos, n[:, None].expand(pts.shape)
 
 
 def _sphere_sphere(p1, m1, s1, p2, m2, s2):
@@ -104,6 +172,10 @@ def _capsule_capsule(p1, m1, s1, p2, m2, s2):
 
 
 _PAIR_FN = {
+    (T.GEOM_PLANE, T.GEOM_SPHERE): _plane_sphere,
+    (T.GEOM_PLANE, T.GEOM_CAPSULE): _plane_capsule,
+    (T.GEOM_PLANE, T.GEOM_ELLIPSOID): _plane_ellipsoid,
+    (T.GEOM_PLANE, T.GEOM_CYLINDER): _plane_cylinder,
     (T.GEOM_SPHERE, T.GEOM_SPHERE): _sphere_sphere,
     (T.GEOM_SPHERE, T.GEOM_CAPSULE): _sphere_capsule,
     (T.GEOM_CAPSULE, T.GEOM_CAPSULE): _capsule_capsule,
@@ -114,8 +186,9 @@ def _dispatch(t1: int, t2: int):
     fn = _PAIR_FN.get((t1, t2))
     if fn is None:
         raise NotImplementedError(
-            f"collision pair {(t1, t2)} is not ported yet (plane, box and "
-            "heightfield pairs are queued in ROADMAP.md)")
+            f"collision pair {(t1, t2)} is not ported yet (the box pairs "
+            "_plane_box, _sphere_box and _capsule_box and the heightfield "
+            "pairs are queued in ROADMAP.md A4)")
     return fn
 
 

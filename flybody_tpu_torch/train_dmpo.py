@@ -7,10 +7,11 @@ one device. Usage:
 
 It runs on "cuda" and raises without it unless ``--device cpu`` is given.
 ``--test`` runs a small smoke configuration printing stats. The flags are
-those of the JAX package's train_dmpo.py; the tasks other than
-walk_on_ball (ROADMAP A5, A7), the intention and vision networks and
-their flags, multi-task training and decoder transfer (A6) raise
-NotImplementedError.
+those of the JAX package's train_dmpo.py. The tasks walk_on_ball and
+walk_imitation are ported; the other fly tasks (template, flight and
+vision: ROADMAP A5) and the rodent and humanoid tasks (A7), the intention
+and vision networks and their flags, multi-task training and decoder
+transfer (A6) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,11 +33,12 @@ A6_FLAGS = {"encoder_layers": "512,512", "decoder_layers": "512,512,512",
 
 
 def make_env(name: str, device):
-    if name != "walk_on_ball":
+    from flybody_tpu_torch import fly_envs
+    if name not in ("walk_on_ball", "walk_imitation"):
         raise NotImplementedError(
-            f"task {name!r} is not ported yet (ROADMAP A5 / A7)")
-    from flybody_tpu_torch.fly_envs import walk_on_ball
-    return walk_on_ball(device=device)
+            f"task {name!r} is not ported yet (ROADMAP A5: the other fly "
+            "tasks; A7: rodent and humanoid)")
+    return getattr(fly_envs, name)(device=device)
 
 
 def parse_args(argv=None):
@@ -160,6 +162,8 @@ def main(argv=None):
                         target_critic_update_period=(
                             args.target_critic_update_period)))
     trainer = DMPOTrainer(make_env(args.task, args.device), cfg)
+    print(f"task {args.task}: {trainer.obs_size} observation floats, "
+          f"{trainer.action_size} actions, on {trainer.device}", flush=True)
     if args.kickstart_ckpt:
         trainer.load_teacher(ckpt.restore_policy_params(args.kickstart_ckpt),
                              args.kickstart_epsilon)

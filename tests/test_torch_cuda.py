@@ -29,7 +29,16 @@ APGD_ARGS = ("rreg", "active", "mu", "f0", "v0")
 ADMM_KW = dict(kl=40, kc=62, iterations=20)     # wob-admm: 226 rows
 
 
+def _imitation_parent():
+    """walk_imitation's dof tree: the free root's six dofs above every
+    hinge (from the committed model; numpy only)."""
+    from flybody_tpu_torch.tasks import walk_imitation as WI
+    return WI.load_model()["dof_parentid"]
+
+
 def _problem(device, dtype, B=8, **shape):
+    if shape.pop("imitation_tree", False):
+        shape["parent"] = _imitation_parent()
     p = SK.random_rows_problem(B=B, seed=1, **shape)
     tree = TL.build_tree_meta(p["parent"])
     ld, dinv = TL.factor(tree, torch.as_tensor(p["Ms"], device=device).to(
@@ -65,7 +74,7 @@ def _admm_problem(device, dtype, B=8, seed=2, kl=ADMM_KW["kl"],
                    for k, v in p.items()})
 
 
-def _stage_calls(tree, a):
+def _stage_calls(tree, a, kw=KW):
     """(wrapper, call) of the three stage kernels on _problem's inputs."""
     jt = SK.build_jt_reference(*(a[k] for k in ROW_ARGS[:7])).contiguous()
     yd, b = (x.contiguous() for x in SK.upsolve_build_yd_reference(
@@ -74,7 +83,7 @@ def _stage_calls(tree, a):
         (SK.upsolve_build_yd, lambda f: f(tree, *(a[k] for k in ROW_ARGS))),
         (SK.upsolve_yd, lambda f: f(tree, jt, *(a[k] for k in UP_ARGS))),
         (SK.apgd_iterate,
-         lambda f: f(yd, b, *(a[k] for k in APGD_ARGS), **KW)),
+         lambda f: f(yd, b, *(a[k] for k in APGD_ARGS), **kw)),
     ]
 
 
@@ -190,11 +199,31 @@ def test_mask_bits():
 
 
 def test_shape_limits():
-    """The kernels hold Yd in registers: nv <= 112 and R <= 160."""
+    """The kernels hold Yd in registers: nv <= 112 and R <= 192. R <= 160
+    takes the narrow instance (5 columns per lane), 161 to 192 the wide one
+    (6)."""
+    assert (SK.MAX_NV, SK.MAX_R_NARROW, SK.MAX_R) == (112, 160, 192)
     SK.check_shape("solve_rows", SK.MAX_NV, SK.MAX_R)
+    assert [SK.tile_cpl(R) for R in (152, 160, 161, 176, 192)] == \
+        [5, 5, 6, 6, 6]
     for nv, R in ((SK.MAX_NV + 1, 152), (105, SK.MAX_R + 1)):
-        with pytest.raises(ValueError, match="nv <= 112 and R <= 160"):
+        with pytest.raises(ValueError, match="nv <= 112 and R <= 192"):
             SK.check_shape("solve_rows", nv, R)
+
+
+def test_smem_at_walk_imitation():
+    """solve_rows' shared memory per block on walk_imitation's tree at its
+    176 rows (the wide instance) stays under the 227 KB a block may use;
+    walk_on_ball's 152 rows keep the narrow instance's 91,072 bytes."""
+    from flybody_tpu_torch.tasks import walk_on_ball as WOB
+    limit = 232448
+    for parent, R, want in ((_imitation_parent(), 176, 118056),
+                            (WOB.load_model()["dof_parentid"], 152, 91072)):
+        tree = TL.build_tree_meta(np.asarray(parent, np.int32))
+        t = SK.pack_tables(tree)
+        smem = SK.smem_bytes(tree.nv, R, tree.nM, t["n_tab"], t["n_up"])
+        assert smem == want < limit
+    assert (tree.nv, t["n_up"]) == (105, 481)
 
 
 def test_admm_w_layout():
@@ -230,6 +259,9 @@ def test_profile_cuts_apply():
 
 RAGGED = {   # nv, kl, kc: the fly's shapes and ragged register tiles
     "fly": dict(nv=105, kl=32, kc=40),
+    "imitation": dict(imitation_tree=True, kl=32, kc=48),
+    "wide_min": dict(nv=105, kl=2, kc=53),
+    "wide_max": dict(nv=112, kl=0, kc=64),
     "ragged": dict(nv=37, kl=5, kc=11),
     "kl0": dict(nv=50, kl=0, kc=20),
     "max": dict(nv=112, kl=0, kc=53),
@@ -241,9 +273,10 @@ RAGGED = {   # nv, kl, kc: the fly's shapes and ragged register tiles
 @pytest.mark.parametrize("shape", list(RAGGED), ids=list(RAGGED))
 def test_kernel_matches_plain_on_card(shape):
     """The CUDA kernel against its plain version (float32, B=256), at the
-    fly's shapes and at shapes that leave ragged register tiles: nv and R
-    not multiples of the tile, kl = 0, nv = 112 and R = 159 (just under
-    the kernel's 112 and 160)."""
+    fly's shapes, at walk_imitation's (the free-root tree, R = 176) and at
+    shapes that leave ragged register tiles: nv and R not multiples of the
+    tile, kl = 0, nv = 112 and R = 159 (just under the narrow instance's
+    160), R = 161 and 192 (the wide instance's first and last)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
     sh = RAGGED[shape]
@@ -261,14 +294,14 @@ def test_kernel_matches_plain_on_card(shape):
 
 @pytest.mark.cuda
 def test_kernel_refuses_large_shapes_and_masks_on_card():
-    """nv over 112 or R over 160, or a maskd that is not 0/1, raise and
+    """nv over 112 or R over 192, or a maskd that is not 0/1, raise and
     launch nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
     n0 = SK.solve_rows.launches
-    for sh in (dict(nv=113, kl=32, kc=40), dict(nv=105, kl=2, kc=53)):
+    for sh in (dict(nv=113, kl=32, kc=40), dict(nv=105, kl=2, kc=64)):
         tree, args = _problem("cuda", torch.float32, **sh)
-        with pytest.raises(ValueError, match="nv <= 112 and R <= 160"):
+        with pytest.raises(ValueError, match="nv <= 112 and R <= 192"):
             SK.solve_rows(tree, **args, **dict(KW, kl=sh["kl"],
                                                kc=sh["kc"]))
     tree, args = _problem("cuda", torch.float32)
@@ -296,16 +329,20 @@ def _max_rel(g, w):
 
 
 @pytest.mark.cuda
-def test_stage_kernels_match_plain_on_card():
+@pytest.mark.parametrize("shape", ["fly", "imitation"])
+def test_stage_kernels_match_plain_on_card(shape):
     """upsolve_build_yd, upsolve_yd and apgd_iterate against their plain
-    versions (float32, B=256)."""
+    versions (float32, B=256), in the narrow instance (walk_on_ball's
+    shapes) and the wide one (walk_imitation's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
-    tree, args = _problem("cuda", torch.float32, B=256)
+    sh = RAGGED[shape]
+    tree, args = _problem("cuda", torch.float32, B=256, nbody=20, **sh)
+    kw = dict(KW, kl=sh["kl"], kc=sh["kc"])
     plain = {SK.upsolve_build_yd: SK.upsolve_build_yd_reference,
              SK.upsolve_yd: SK.upsolve_yd_reference,
              SK.apgd_iterate: SK.apgd_iterate_reference}
-    for fn, call in _stage_calls(tree, args):
+    for fn, call in _stage_calls(tree, args, kw):
         n0 = fn.launches
         got = call(fn)
         want = call(plain[fn])
@@ -372,3 +409,22 @@ def test_new_kernels_refuse_float64_on_card():
         AK.admm_iterate(*_admm_problem("cuda", torch.float64).values(),
                         **ADMM_KW)
     assert AK.admm_iterate.launches == n0
+
+
+@pytest.mark.cuda
+def test_kernel_occupancy_on_card():
+    """The narrow instance keeps two blocks per SM at walk_on_ball's
+    shapes; the wide one runs one at walk_imitation's, without spilling
+    its register tile to local memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    from flybody_tpu_torch.tasks import walk_on_ball as WOB
+    for parent, R, cpl, blocks in (
+            (WOB.load_model()["dof_parentid"], 152, 5, 2),
+            (_imitation_parent(), 176, 6, 1)):
+        tree = TL.build_tree_meta(np.asarray(parent, np.int32))
+        info = SK.kernel_info("solve_rows", tree.nv, R, tree.nM,
+                              SK.pack_tables(tree))
+        assert info["cpl"] == cpl
+        assert info["blocks_per_sm"] == blocks
+        assert info["local_bytes"] == 0

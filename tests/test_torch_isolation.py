@@ -59,3 +59,14 @@ def test_walk_on_ball_needs_cuda_unless_told_otherwise():
         walk_on_ball()
     env = walk_on_ball(device="cpu")
     assert env.device.type == "cpu"
+
+
+def test_walk_imitation_needs_cuda_unless_told_otherwise():
+    from flybody_tpu_torch.fly_envs import walk_imitation
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        walk_imitation()
+    env = walk_imitation(device="cpu")
+    assert env.device.type == "cpu"
+    assert env.task.dataset.lengths.device.type == "cpu"

@@ -75,6 +75,25 @@ def test_random_inputs():
     assert SK.solve_rows.launches == before == 0
 
 
+def test_random_inputs_walk_imitation_shapes():
+    """walk_imitation's shapes: nv 108 on the free-root dof tree (six root
+    dofs above every hinge), kl 32, kc 48 (R = 176, the kernel's wide
+    instance)."""
+    from flybody_tpu_torch.tasks import walk_imitation as WI
+    p = SK.random_rows_problem(B=3, seed=2, kl=32, kc=48,
+                               parent=WI.load_model()["dof_parentid"])
+    tree = TL.build_tree_meta(p["parent"])
+    assert tree.nv == 108 and len(TL.flat_up(tree)) == 1105
+    ld, dinv = TL.factor(tree, torch.as_tensor(p["Ms"]))
+    args = {k: p[k] for k in ARGS if k not in ("ld", "dinv")}
+    args.update(ld=ld.numpy(), dinv=dinv.numpy())
+    kw = dict(kl=32, kc=48, iterations=20, noslip_iterations=3,
+              power_iters=3)
+    got, want = _both(p["parent"], args, kw)
+    _check(got, want)
+    assert SK.solve_rows.launches == 0
+
+
 @pytest.fixture(scope="module")
 def fly_rows():
     """solve_rows inputs assembled from a contact-rich fly state: two

@@ -263,7 +263,7 @@ def test_trainer_needs_cuda_unless_told_otherwise():
     with pytest.raises(NotImplementedError, match="A6"):
         DMPOTrainer(_ToyEnv(), TrainerConfig(network="vision"))
     with pytest.raises(NotImplementedError, match="A5"):
-        train_dmpo.make_env("walk_imitation", "cpu")
+        train_dmpo.make_env("flight_imitation", "cpu")
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -292,3 +292,24 @@ def test_cli_test_mode_on_cpu():
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     line = [x for x in res.stdout.splitlines() if x.startswith("[learner]")]
     assert len(line) == 1 and "learner_steps=80" in line[0], res.stdout
+
+
+def test_cli_walk_imitation_on_cpu():
+    """The CLI trains walk_imitation in --test mode on the CPU: the
+    trainer reads the env's observation width, and the first iteration's
+    80 updates give a finite critic loss."""
+    from flybody_tpu_torch.fly_envs import walk_imitation
+    width = sum(v.shape[1] for v in walk_imitation(device="cpu").reset(
+        1).obs.values())
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-m", "flybody_tpu_torch.train_dmpo", "--task",
+         "walk_imitation", "--test", "--device", "cpu", "--iterations", "1"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert f"task walk_imitation: {width} observation floats, 59 actions" \
+        in res.stdout, res.stdout
+    line = [x for x in res.stdout.splitlines() if x.startswith("[learner]")]
+    assert len(line) == 1 and "learner_steps=80" in line[0], res.stdout
+    loss = float(line[0].split("critic_loss=")[1].split()[0].rstrip(","))
+    assert np.isfinite(loss) and loss != 0.0, line[0]
