@@ -55,12 +55,26 @@ Phases (each prints its lines; any failure exits non-zero):
               as in phase 4; solve_rows against its plain version on the
               final state's inputs as in phase 5, its time with and
               without the solver loop
- 10. registers, shared memory, resident blocks per SM and local (spill)
-     bytes of every kernel (solve_rows in both instances); the kernel
-     table as JSON ("launches" on the main path of phase 3 or 6-7,
-     "launches_train" in phase 8, solve_rows' "launches_imitation",
-     "ms_imitation", "plain_ms_imitation" and "bound_ms_imitation" in
-     phase 9), the card line, the result line
+ 10. flight   flight_imitation (the winged fly in air, the wing fluid, the
+              wing-beat pattern generator; solve_rows at 64 rows over 42
+              dofs, the kernel's narrow instance) at B=4096, float32: reset
+              from a seeded CUDA generator, one warm-up control step, then
+              10 autoreset_step calls with mid-range actions (user action
+              0); obs and reward finite, solve_rows launched exactly once
+              per substep (4 per control step), the fluid force nonzero in
+              every env; one substep of 4 envs on the card against the CPU
+              as in phase 4; solve_rows against its plain version on the
+              final state's inputs as in phase 5, its time with and without
+              the solver loop. Then the template task (the free fly on a
+              floor, contact solver "apgd"): 8 envs, one control step,
+              finite obs and no hand kernel launched
+ 11. registers, shared memory, resident blocks per SM and local (spill)
+     bytes of every kernel (solve_rows in both instances and at flight's
+     shapes); the kernel table as JSON ("launches" on the main path of
+     phase 3 or 6-7, "launches_train" in phase 8, solve_rows'
+     "launches_imitation", "ms_imitation", "plain_ms_imitation" and
+     "bound_ms_imitation" in phase 9 and the same "*_flight" keys in phase
+     10), the card line, the result line
 """
 
 from __future__ import annotations
@@ -77,6 +91,8 @@ B = 4096
 STEPS = 20
 ADMM_STEPS = 2
 IMIT_STEPS = 10
+FLIGHT_STEPS = 10
+TEMPLATE_B = 8
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth
@@ -422,7 +438,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import numpy as np
-    from flybody_tpu_torch.fly_envs import walk_imitation, walk_on_ball
+    from flybody_tpu_torch.fly_envs import (flight_imitation, template_task,
+                                            walk_imitation, walk_on_ball)
     from flybody_tpu_torch.ops import admm_kernel as AK
     from flybody_tpu_torch.ops import solver_kernels as SK
     from flybody_tpu_torch.ops import tree_ldl as TL
@@ -434,6 +451,7 @@ def main() -> int:
     from flybody_tpu_torch.envs.core import FlyEnv
     from flybody_tpu_torch.envs.walker import FlyWalker
     from flybody_tpu_torch.physics import io_mj
+    from flybody_tpu_torch.tasks import flight_imitation as FI
     from flybody_tpu_torch.tasks import walk_imitation as WI
     from flybody_tpu_torch.tasks import walk_on_ball as WOB
 
@@ -513,11 +531,14 @@ def main() -> int:
           f"{int(state.done.sum())}", flush=True)
 
     # ---- 4. small-input reference: the same substep on the CPU ----------
+    def first_four(data):
+        """The numpy state of the first 4 envs of ``data``."""
+        return {k: ({kk: vv[..., :4] for kk, vv in v.items()}
+                    if isinstance(v, dict) else v[..., :4])
+                for k, v in bridge.to_numpy(data).items()}
+
     m = env.model
-    small = bridge.to_numpy(state.data)
-    small = {k: ({kk: vv[..., :4] for kk, vv in v.items()}
-                 if isinstance(v, dict) else v[..., :4])
-             for k, v in small.items()}
+    small = first_four(state.data)
     cpu = {dt_: WOB.make_walk_on_ball("cpu", dtype=dt_).model
            for dt_ in (f32, f64)}
 
@@ -820,47 +841,101 @@ def main() -> int:
     print(f"kernel: solve_rows launches {launched['solve_rows']} on the main "
           f"path, {train_launched['solve_rows']} in training", flush=True)
 
+    def env_phase(label, env, steps):
+        """Phases 9-10: reset B envs from a seeded CUDA generator, one
+        warm-up control step, then ``steps`` timed autoreset_step calls
+        with mid-range actions; fails unless solve_rows launched once per
+        substep (and nothing else) and obs and reward are finite. Returns
+        the final state and the launches."""
+        lo_e, hi_e = env.action_spec()
+        mid_e = torch.as_tensor((lo_e + hi_e) / 2, dtype=f32,
+                                device=dev)[None].expand(B, -1)
+        gen = torch.Generator(dev).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = env.reset(B, gen)
+        torch.cuda.synchronize()
+        reset_e = time.perf_counter() - t0
+        st = env.autoreset_step(st, mid_e)               # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st = env.autoreset_step(st, mid_e)
+        torch.cuda.synchronize()
+        dt_e = time.perf_counter() - t0
+        launched_e = counts()
+        print(f"{label}: {env.task.__class__.__name__} B={B} reset "
+              f"{reset_e:.3f} s, {steps} control steps in {dt_e:.3f} s = "
+              f"{B * steps / dt_e:.1f} env-steps/s "
+              f"({1e3 * dt_e / steps:.1f} ms per control step) | {smi}",
+              flush=True)
+        print(f"{label}: launches {launched_e} (expected solve_rows "
+              f"{steps * env.n_substeps}, the others 0)", flush=True)
+        if launched_e != dict({k: 0 for k in wrappers},
+                              solve_rows=steps * env.n_substeps):
+            fail(f"{label}: solve_rows was not launched once per substep")
+        for k, v in st.obs.items():
+            if not bool(torch.isfinite(v).all()):
+                fail(f"{label} obs {k} not finite")
+        if not bool(torch.isfinite(st.reward).all()):
+            fail(f"{label} reward not finite")
+        print(f"{label}: obs {len(st.obs)} keys, "
+              f"{sum(v.shape[1] for v in st.obs.values())} floats per env, "
+              f"all finite; reward mean {st.reward.mean().item():.4e}, done "
+              f"{int(st.done.sum())}, discount 0 in "
+              f"{int((st.discount == 0).sum())}", flush=True)
+        return st, launched_e
+
+    def hold_rows(label, env, st, launched_e, cpu_model, shape):
+        """Phases 9-10 on the final state ``st``: one substep of 4 envs on
+        the card against the CPU models ``cpu_model(dtype)`` as in phase 4,
+        then solve_rows at the env's (nv, R, instance) ``shape`` against its
+        plain version as in phase 5, timed with and without the solver
+        loop; B1's kernel row gains the ``*_{label}`` keys. Returns R."""
+        me = env.model
+        substep_check(label, me, "fused", small=first_four(st.data),
+                      cpu={dt_: cpu_model(dt_) for dt_ in (f32, f64)})
+        prob_e = SF.assemble(me, F.smooth_forward(me, st.data))
+        args_e, kw_e = prob_e["args"], prob_e["kw"]
+        R_e = args_e["u6"].shape[0]
+        if (me.nv, R_e, SK.tile_cpl(R_e)) != shape:
+            fail(f"{label}: nv {me.nv}, {R_e} rows, instance "
+                 f"{SK.tile_cpl(R_e)}; expected {shape}")
+        out_e, err_e = check_rows(label, me.tree, args_e, kw_e)
+        k_ms_e = cuda_ms(lambda: SK.solve_rows(me.tree, **args_e, **kw_e),
+                         20)
+        p_ms_e = cuda_ms(lambda: SK.solve_rows_reference(me.tree, **args_e,
+                                                         **kw_e), 3)
+        kw0_e = dict(kw_e, iterations=0, noslip_iterations=0, power_iters=0)
+        k0_ms_e = cuda_ms(lambda: SK.solve_rows(me.tree, **args_e, **kw0_e),
+                          20)
+        n_up_e = len(TL.flat_up(me.tree))
+        flops_e = SK.solve_rows_work(me.nv, R_e, B, n_up_e,
+                                     len(TL.flat_down(me.tree)),
+                                     kw_e["iterations"],
+                                     kw_e["noslip_iterations"],
+                                     kw_e["power_iters"])
+        b_ms_e, by_e = bound(flops_e, nbytes(*args_e.values(), *out_e))
+        print(f"kernel: solve_rows {label} (nv {me.nv}, R {R_e}, n_up "
+              f"{n_up_e}) B={B} kernel {k_ms_e:.3f} ms, plain {p_ms_e:.3f} "
+              f"ms, bound {b_ms_e:.4f} ms ({by_e}: {flops_e / 1e9:.2f} "
+              f"GFLOP), launches {launched_e['solve_rows']} | {smi}",
+              flush=True)
+        print(f"breakdown: solve_rows {label} {k_ms_e:.3f} ms; without the "
+              f"solver loop {k0_ms_e:.3f} ms; the loop "
+              f"{k_ms_e - k0_ms_e:.3f} ms", flush=True)
+        rows["solve_rows"].update(**{
+            f"launches_{label}": launched_e["solve_rows"],
+            f"max_abs_err_{label}": err_e, f"ms_{label}": k_ms_e,
+            f"plain_ms_{label}": p_ms_e, f"bound_ms_{label}": b_ms_e,
+            f"bound_by_{label}": by_e})
+        return R_e
+
     # ---- 9. walk_imitation -----------------------------------------------
     env_i = walk_imitation()
     mi = env_i.model
-    lo_i, hi_i = env_i.action_spec()
-    mid_i = torch.as_tensor((lo_i + hi_i) / 2, dtype=f32,
-                            device=dev)[None].expand(B, -1)
-    gen = torch.Generator(dev).manual_seed(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state_i = env_i.reset(B, gen)
-    torch.cuda.synchronize()
-    reset_i = time.perf_counter() - t0
-    state_i = env_i.autoreset_step(state_i, mid_i)    # warm-up
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    for _ in range(IMIT_STEPS):
-        state_i = env_i.autoreset_step(state_i, mid_i)
-    torch.cuda.synchronize()
-    dt_i = time.perf_counter() - t0
-    launched_i = counts()
-    print(f"imitation: walk_imitation B={B} reset {reset_i:.3f} s, "
-          f"{IMIT_STEPS} control steps in {dt_i:.3f} s = "
-          f"{B * IMIT_STEPS / dt_i:.1f} env-steps/s "
-          f"({1e3 * dt_i / IMIT_STEPS:.1f} ms per control step) | {smi}",
-          flush=True)
-    print(f"imitation: launches {launched_i} (expected solve_rows "
-          f"{IMIT_STEPS * env_i.n_substeps}, the others 0)", flush=True)
-    if launched_i != dict({k: 0 for k in wrappers},
-                          solve_rows=IMIT_STEPS * env_i.n_substeps):
-        fail("imitation: solve_rows was not launched once per substep")
-    for k, v in state_i.obs.items():
-        if not bool(torch.isfinite(v).all()):
-            fail(f"imitation obs {k} not finite")
-    if not bool(torch.isfinite(state_i.reward).all()):
-        fail("imitation reward not finite")
-    print(f"imitation: obs {len(state_i.obs)} keys, "
-          f"{sum(v.shape[1] for v in state_i.obs.values())} floats per env, "
-          f"all finite; reward mean {state_i.reward.mean().item():.4e}, done "
-          f"{int(state_i.done.sum())}, discount 0 in "
-          f"{int((state_i.discount == 0).sum())}", flush=True)
+    state_i, launched_i = env_phase("imitation", env_i, IMIT_STEPS)
     # the floor in contact: selected contacts with the floor geom on one
     # side (in a plane pair the floor is geom 1) that penetrate, and those
     # of them among the fused solver's cones
@@ -878,50 +953,56 @@ def main() -> int:
           f"{int(taken.sum()) / B:.2f} per env", flush=True)
     if not (int(pen.sum()) > 0 and int(taken.sum()) > 0):
         fail("imitation: no penetrating floor contact reached the solver")
+    # solve_rows at 176 rows, the wide instance
+    R_i = hold_rows("imitation", env_i, state_i, launched_i,
+                    lambda dt_: WI.make_walk_imitation("cpu",
+                                                       dtype=dt_).model,
+                    (108, 176, SK.CPL_WIDE))
+    del state_i, con, pen, taken
 
-    # one substep of 4 envs of the final state, card against CPU
-    small_i = bridge.to_numpy(state_i.data)
-    small_i = {k: ({kk: vv[..., :4] for kk, vv in v.items()}
-                   if isinstance(v, dict) else v[..., :4])
-               for k, v in small_i.items()}
-    cpu_i = {dt_: WI.make_walk_imitation("cpu", dtype=dt_).model
-             for dt_ in (f32, f64)}
-    substep_check("imitation", mi, "fused", small=small_i, cpu=cpu_i)
+    # ---- 10. flight_imitation --------------------------------------------
+    env_f = flight_imitation()
+    mf = env_f.model
+    if env_f.n_substeps != 4:
+        fail(f"flight: {env_f.n_substeps} substeps per control step")
+    state_f, launched_f = env_phase("flight", env_f, FLIGHT_STEPS)
+    fluid = state_f.data.qfrc_fluid.abs().amax(dim=0)
+    print(f"flight: max |qfrc_fluid| per env: least {fluid.min().item():.3e}"
+          f", most {fluid.max().item():.3e}", flush=True)
+    if not bool((fluid > 0).all()):
+        fail(f"flight: no fluid force in {int((fluid == 0).sum())} envs")
+    # solve_rows at 64 rows over 42 dofs, the narrow instance
+    R_f = hold_rows("flight", env_f, state_f, launched_f,
+                    lambda dt_: FI.make_flight_imitation("cpu",
+                                                         dtype=dt_).model,
+                    (42, 64, SK.CPL_NARROW))
+    del state_f
 
-    # solve_rows at 176 rows (the wide instance) on the final state
-    d_i = F.smooth_forward(mi, state_i.data)
-    prob_i = SF.assemble(mi, d_i)
-    args_i, kw_i = prob_i["args"], prob_i["kw"]
-    R_i = args_i["u6"].shape[0]
-    if R_i != 176 or SK.tile_cpl(R_i) != SK.CPL_WIDE:
-        fail(f"imitation: {R_i} rows, instance {SK.tile_cpl(R_i)}")
-    out_i, err_i = check_rows("imitation", mi.tree, args_i, kw_i)
-    k_ms_i = cuda_ms(lambda: SK.solve_rows(mi.tree, **args_i, **kw_i), 20)
-    p_ms_i = cuda_ms(lambda: SK.solve_rows_reference(mi.tree, **args_i,
-                                                     **kw_i), 3)
-    kw0_i = dict(kw_i, iterations=0, noslip_iterations=0, power_iters=0)
-    k0_ms_i = cuda_ms(lambda: SK.solve_rows(mi.tree, **args_i, **kw0_i), 20)
-    n_up_i, n_down_i = len(TL.flat_up(mi.tree)), len(TL.flat_down(mi.tree))
-    flops_i = SK.solve_rows_work(mi.nv, R_i, B, n_up_i, n_down_i,
-                                 kw_i["iterations"],
-                                 kw_i["noslip_iterations"],
-                                 kw_i["power_iters"])
-    b_ms_i, by_i = bound(flops_i, nbytes(*args_i.values(), *out_i))
-    print(f"kernel: solve_rows imitation (nv {mi.nv}, R {R_i}, n_up "
-          f"{n_up_i}) B={B} kernel {k_ms_i:.3f} ms, plain {p_ms_i:.3f} ms, "
-          f"bound {b_ms_i:.4f} ms ({by_i}: {flops_i / 1e9:.2f} GFLOP), "
-          f"launches {launched_i['solve_rows']} | {smi}", flush=True)
-    print(f"breakdown: solve_rows imitation {k_ms_i:.3f} ms; without the "
-          f"solver loop {k0_ms_i:.3f} ms; the loop {k_ms_i - k0_ms_i:.3f} ms",
+    # the template task: the APGD solver, no hand kernel
+    env_t = template_task()
+    lo_t, hi_t = env_t.action_spec()
+    mid_t = torch.as_tensor((lo_t + hi_t) / 2, dtype=f32,
+                            device=dev)[None].expand(TEMPLATE_B, -1)
+    state_t = env_t.reset(TEMPLATE_B)
+    torch.cuda.synchronize()
+    zero_counts()
+    state_t = env_t.autoreset_step(state_t, mid_t)
+    torch.cuda.synchronize()
+    launched_t = counts()
+    print(f"template: B={TEMPLATE_B} one control step ({env_t.n_substeps} "
+          f"substeps, contact solver {env_t.model.opt.contact_solver!r}); "
+          f"launches {launched_t} (expected 0 of every kernel)", flush=True)
+    if any(launched_t.values()):
+        fail("template: a hand kernel was launched")
+    for k, v in state_t.obs.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"template obs {k} not finite")
+    print(f"template: obs {len(state_t.obs)} keys, "
+          f"{sum(v.shape[1] for v in state_t.obs.values())} floats per env, "
+          f"all finite; reward {state_t.reward.mean().item():.1f}",
           flush=True)
-    rows["solve_rows"].update(
-        launches_imitation=launched_i["solve_rows"],
-        max_abs_err_imitation=err_i, ms_imitation=k_ms_i,
-        plain_ms_imitation=p_ms_i, bound_ms_imitation=b_ms_i,
-        bound_by_imitation=by_i)
-    del state_i, d_i, prob_i, args_i, out_i
 
-    # ---- 10. result ------------------------------------------------------
+    # ---- 11. result ------------------------------------------------------
     nM = fly_args["ld"].shape[0]
     tabs = SK.pack_tables(m.tree)
     for name, info in (
@@ -929,6 +1010,9 @@ def main() -> int:
             ("solve_rows at walk_imitation",
              SK.kernel_info("solve_rows", mi.nv, R_i, mi.tree.nM,
                             SK.pack_tables(mi.tree))),
+            ("solve_rows at flight_imitation",
+             SK.kernel_info("solve_rows", mf.nv, R_f, mf.tree.nM,
+                            SK.pack_tables(mf.tree))),
             ("upsolve_build_yd / upsolve_yd",
              SK.kernel_info("upsolve", m.nv, R, nM, tabs)),
             ("apgd_iterate", SK.kernel_info("apgd_iterate", m.nv, R, nM,

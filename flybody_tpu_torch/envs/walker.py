@@ -28,6 +28,9 @@ class FlyWalker:
         self.action_maps = action_maps
         names = model.names
         self.thorax_id = names["body"]["thorax"]
+        self.abdomen_id = names["body"].get("abdomen", 0)
+        # the hover frame (body pitched for flight), present with wings
+        self.hover_site = names["site"].get("hover_up_dir")
         self.claw_sites = [v for k, v in sorted(names["site"].items())
                            if k.startswith("claw_")]
         # appendages = end effectors + the head site
@@ -51,7 +54,8 @@ class FlyWalker:
             fly_joints = [j for j in range(model.njnt) if scalar[j]]
         self.joint_qposadr = np.asarray(model.jnt_qposadr)[fly_joints]
         self.joint_dofadr = np.asarray(model.jnt_dofadr)[fly_joints]
-        # ctrl routing: env action index per ctrl slot (-1 = none)
+        # ctrl routing: env action index per ctrl slot (-1 = none); the
+        # user actions have no ctrl slot
         ctrl_src = np.full(model.nu, -1, dtype=np.int64)
         for cls in ACTION_CLASSES:
             for ci, ai in zip(action_maps["ctrl"].get(cls, []),
@@ -126,3 +130,51 @@ class FlyWalker:
             "force": self.sensors_concat(sensor_mean, "force_"),
             "touch": self.sensors_concat(sensor_mean, "touch_"),
         }
+
+    def world_zaxis_hover(self, model: Model, data: Data):
+        """World z-axis in the hover (flight-pitch) frame, (B, 3)."""
+        z = data.xmat[self.thorax_id, 2].T
+        if self.hover_site is None:
+            return z
+        hq = model.site_quat[self.hover_site]
+        return mq.rotate_vec_with_quat(z, mq.conj_quat(hq))
+
+    def world_zaxis_body(self, data: Data, body_id: int):
+        return data.xmat[body_id, 2].T
+
+    def thorax_height(self, data: Data):
+        return data.xpos[self.thorax_id, 2]
+
+    def abdomen_height(self, data: Data):
+        return data.xpos[self.abdomen_id, 2]
+
+    def self_contact(self, model: Model, data: Data):
+        """(B,) sum of the normal force magnitudes of the selected contacts
+        between two fly bodies (reference fruitfly.py:640-659). A slot id
+        of ``warm_sel`` below ``ncon_max`` is an analytic pair's contact,
+        one above it a convex-narrowphase candidate pair's; -1 pads."""
+        B = data.qpos.shape[-1]
+        if data.warm_sel.shape[0] == 0:
+            return data.qpos.new_zeros((B,))
+        from flybody_tpu_torch.physics.actuation import slot_bodies
+        b1, b2 = slot_bodies(model)
+        b1 = np.concatenate([b1, np.asarray(model.ccd_b1, np.int64)])
+        b2 = np.concatenate([b2, np.asarray(model.ccd_b2, np.int64)])
+        both_fly = model.const((b1 != 0) & (b2 != 0)).to(data.qpos.dtype)
+        sel = data.warm_sel.long()
+        flag = torch.where(sel >= 0, both_fly[sel.clamp(min=0)],
+                           torch.zeros((), dtype=data.qpos.dtype,
+                                       device=sel.device))
+        return torch.sum(torch.abs(data.warm_f[:, 0]) * flag, dim=0)
+
+    def egocentric_to_world(self, data: Data, vec):
+        """(B, ..., 3) vectors in the thorax frame -> world frame."""
+        q = data.xquat[self.thorax_id].T
+        return mq.rotate_vec_with_quat(vec, q.reshape(
+            q.shape[:1] + (1,) * (vec.ndim - 2) + (4,)))
+
+    def world_to_egocentric(self, data: Data, vec):
+        """(B, ..., 3) world vectors -> the thorax frame."""
+        q = mq.conj_quat(data.xquat[self.thorax_id].T)
+        return mq.rotate_vec_with_quat(vec, q.reshape(
+            q.shape[:1] + (1,) * (vec.ndim - 2) + (4,)))

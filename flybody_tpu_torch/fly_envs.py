@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from flybody_tpu_torch.tasks.flight_imitation import make_flight_imitation
+from flybody_tpu_torch.tasks.template_task import make_template_task
 from flybody_tpu_torch.tasks.walk_imitation import make_walk_imitation
 from flybody_tpu_torch.tasks.walk_on_ball import make_walk_on_ball
 
@@ -34,9 +36,29 @@ def walk_on_ball(device=None, dtype=torch.float32, time_limit: float = 2.0):
                              time_limit=time_limit)
 
 
+def template_task(device=None, time_limit: float = 1.0,
+                  dtype=torch.float32):
+    """No-op walking task of the free fly on a floor, for testing."""
+    return make_template_task(default_device(device), dtype=dtype,
+                              time_limit=time_limit)
+
+
 def walk_imitation(device=None, ref_path: str | None = None,
                    time_limit: float = 10.0, dtype=torch.float32):
     """The free fly on a flat floor tracking reference walking snippets
     (the synthetic dataset unless ``ref_path`` names an HDF5 file)."""
     return make_walk_imitation(default_device(device), dtype=dtype,
                                ref_path=ref_path, time_limit=time_limit)
+
+
+def flight_imitation(device=None, ref_path: str | None = None,
+                     wpg_pattern_path: str | None = None,
+                     time_limit: float = 0.6, dtype=torch.float32):
+    """The winged fly in air tracking reference flight snippets, its wings
+    driven by the wing-beat pattern generator (the synthetic dataset and
+    base pattern unless ``ref_path`` names an HDF5 file and
+    ``wpg_pattern_path`` an .npy pattern)."""
+    return make_flight_imitation(default_device(device), dtype=dtype,
+                                 ref_path=ref_path,
+                                 wpg_pattern_path=wpg_pattern_path,
+                                 time_limit=time_limit)

@@ -1,14 +1,14 @@
 """Reference-trajectory datasets of the imitation tasks.
 
 Host-side loading (HDF5, groups ``trajectories/NNN`` with qpos / qvel /
-root2site / joint_quat) into padded tensors (num_traj, max_len, dim) plus
-lengths; ``TrajectoryDataset.to`` moves them to the env's device, where a
-snippet is a tensor index into them, chosen per env.
+root2site / joint_quat for walking, com_qpos / com_qvel for flight) into
+padded tensors (num_traj, max_len, dim) plus lengths;
+``TrajectoryDataset.to`` moves them to the env's device, where a snippet
+is a tensor index into them, chosen per env.
 
-``synthetic_walking_dataset`` makes a small dataset so the task runs
-without data files. It is numpy with the JAX package's draws, so both
-packages hold the same dataset bit for bit. The flight datasets wait for
-``flight_imitation`` (ROADMAP A5).
+``synthetic_walking_dataset`` and ``synthetic_flight_dataset`` make small
+datasets so the tasks run without data files. They are numpy with the JAX
+package's draws, so both packages hold the same datasets bit for bit.
 """
 
 from __future__ import annotations
@@ -126,3 +126,46 @@ def synthetic_walking_dataset(qpos0: np.ndarray, n_joints: int,
                        ("root2site", r2s_l), ("joint_quat", jq_l)):
         fields[name], lengths = _pad_stack(arrs)
     return _dataset(fields, lengths, timestep)
+
+
+def load_hdf5_flight(path: str) -> TrajectoryDataset:
+    """Load a flight (com) HDF5 dataset (float32 fields, on the CPU); each
+    trajectory's initial xy is moved to the origin."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        timestep = float(f["timestep_seconds"][()]) \
+            if "timestep_seconds" in f else 2e-4
+        names = sorted(f["trajectories"].keys())
+        qpos_l, qvel_l = [], []
+        for n in names:
+            g = f["trajectories"][n]
+            qp = np.asarray(g["com_qpos"][()], np.float32)
+            qp[:, :2] -= qp[0, :2]
+            qpos_l.append(qp)
+            qvel_l.append(np.asarray(g["com_qvel"][()], np.float32))
+    qpos, lengths = _pad_stack(qpos_l)
+    qvel, _ = _pad_stack(qvel_l)
+    return _dataset({"com_qpos": qpos, "com_qvel": qvel}, lengths, timestep)
+
+
+def synthetic_flight_dataset(num_traj: int = 4, length: int = 3000,
+                             timestep: float = 2e-4, height: float = 1.0,
+                             speeds=(20.0, 30.0, 40.0, 50.0),
+                             seed: int = 0) -> TrajectoryDataset:
+    """Straight-and-level flight com trajectories (cm units)."""
+    qpos_l, qvel_l = [], []
+    for i in range(num_traj):
+        v = speeds[i % len(speeds)]
+        t = np.arange(length) * timestep
+        qpos = np.zeros((length, 7), np.float32)
+        qpos[:, 0] = v * t
+        qpos[:, 2] = height
+        qpos[:, 3] = 1.0  # identity quat
+        qvel = np.zeros((length, 6), np.float32)
+        qvel[:, 0] = v
+        qpos_l.append(qpos)
+        qvel_l.append(qvel)
+    qpos, lengths = _pad_stack(qpos_l)
+    qvel, _ = _pad_stack(qvel_l)
+    return _dataset({"com_qpos": qpos, "com_qvel": qvel}, lengths, timestep)

@@ -4,10 +4,11 @@ solve dispatch.
 MuJoCo's soft-constraint model with static row counts: contacts are
 grouped by condim with a top-K active island per group (selected inside
 collision()), joint-limit rows are implicit (one nonzero per row). The
-solve works in the dual over the product of friction cones. The port
-carries the fused flat-row solver (physics/solver_fused.py), the
-production path of every env; the matrix-free APGD and dense ADMM paths of
-the JAX package raise NotImplementedError until they are ported.
+solve works in the dual over the product of friction cones. ``solve``
+dispatches on ``m.opt.contact_solver`` to one of four solvers: "fused"
+(the flat-row solver of physics/solver_fused.py, the production path of
+the walking and flight envs), "apgd" (matrix-free, physics/solver.py),
+"admm" and "admm_kernel" (dense, physics/solver_dense.py).
 """
 
 from __future__ import annotations

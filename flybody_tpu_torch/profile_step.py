@@ -1,10 +1,13 @@
-"""Where the time of one walk_on_ball control step goes, on the card.
+"""Where the time of one control step goes, on the card.
 
-    python3 -m flybody_tpu_torch.profile_step [B]
+    python3 -m flybody_tpu_torch.profile_step [B] [TASK]
 
-Prints (1) the host-clock time of each physics stage of one fresh and one
-update substep, each stage fenced by torch.cuda.synchronize, and (2) a
-torch.profiler trace of one control step: device time by kernel, the
+TASK is a ``fly_envs`` factory (walk_on_ball by default, walk_imitation,
+flight_imitation). Prints (1) the host-clock time of each physics stage of
+one fresh and one update substep, each stage fenced by
+torch.cuda.synchronize, and of one batched ``env.reset`` (the auto-reset
+of a task that draws its initial states runs one every control step), and
+(2) a torch.profiler trace of one control step: device time by kernel, the
 device-busy total against the wall time, and the number of kernel
 launches. Needs a CUDA device.
 """
@@ -16,7 +19,7 @@ import time
 
 import torch
 
-from flybody_tpu_torch.fly_envs import walk_on_ball
+from flybody_tpu_torch import fly_envs
 from flybody_tpu_torch.physics import actuation as A
 from flybody_tpu_torch.physics import collision as COL
 from flybody_tpu_torch.physics import constraint as C
@@ -54,17 +57,29 @@ def stage_times(m, d, col_update: bool, reps: int = 3) -> dict:
     return {k: sorted(v)[len(v) // 2] for k, v in out.items()}
 
 
-def main(B: int = 4096) -> None:
-    env = walk_on_ball()
+def main(B: int = 4096, task: str = "walk_on_ball") -> None:
+    env = getattr(fly_envs, task)()
     lo, hi = env.action_spec()
     mid = torch.as_tensor((lo + hi) / 2, dtype=torch.float32,
                           device="cuda")[None].expand(B, -1)
-    state = env.reset(B)
+    gen = torch.Generator("cuda").manual_seed(0)
+    state = env.reset(B, gen)
     for _ in range(2):
         state = env.autoreset_step(state, mid)
     torch.cuda.synchronize()
     m = env.model
-    print(f"device: {torch.cuda.get_device_name(0)}  B={B}")
+    print(f"device: {torch.cuda.get_device_name(0)}  {task} B={B}, "
+          f"{env.n_substeps} substeps per control step, col_refresh "
+          f"{m.col_refresh}")
+    resets = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        env.reset(B, gen)
+        torch.cuda.synchronize()
+        resets.append(time.perf_counter() - t0)
+    print(f"batched reset: {1e3 * sorted(resets)[1]:.2f} ms (median of 3; "
+          f"runs every control step: "
+          f"{not env.task.deterministic_init})")
     for upd in (False, True):
         t = stage_times(m, state.data, upd)
         total = sum(t.values())
@@ -107,4 +122,5 @@ def main(B: int = 4096) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 4096)
+    main(int(sys.argv[1]) if len(sys.argv) > 1 else 4096,
+         sys.argv[2] if len(sys.argv) > 2 else "walk_on_ball")

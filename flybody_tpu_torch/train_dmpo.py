@@ -7,11 +7,11 @@ one device. Usage:
 
 It runs on "cuda" and raises without it unless ``--device cpu`` is given.
 ``--test`` runs a small smoke configuration printing stats. The flags are
-those of the JAX package's train_dmpo.py. The tasks walk_on_ball and
-walk_imitation are ported; the other fly tasks (template, flight and
-vision: ROADMAP A5) and the rodent and humanoid tasks (A7), the intention
-and vision networks and their flags, multi-task training and decoder
-transfer (A6) raise NotImplementedError.
+those of the JAX package's train_dmpo.py. The tasks walk_on_ball, template,
+walk_imitation and flight_imitation are ported; vision_guided_flight
+(ROADMAP A5), the rodent and humanoid tasks (A7), the intention and vision
+networks and their flags, multi-task training and decoder transfer (A6)
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,6 +25,11 @@ TASKS = ("walk_on_ball", "template", "walk_imitation", "flight_imitation",
          "rodent_maze_forage", "rodent_two_touch", "rodent_walk_imitation",
          "walk_humanoid")
 
+# the ported tasks, by CLI name -> fly_envs factory
+PORTED = {"walk_on_ball": "walk_on_ball", "template": "template_task",
+          "walk_imitation": "walk_imitation",
+          "flight_imitation": "flight_imitation"}
+
 # flags read only by the intention network (ROADMAP A6), with their
 # defaults: any other value raises rather than being dropped
 A6_FLAGS = {"encoder_layers": "512,512", "decoder_layers": "512,512,512",
@@ -34,11 +39,11 @@ A6_FLAGS = {"encoder_layers": "512,512", "decoder_layers": "512,512,512",
 
 def make_env(name: str, device):
     from flybody_tpu_torch import fly_envs
-    if name not in ("walk_on_ball", "walk_imitation"):
+    if name not in PORTED:
         raise NotImplementedError(
-            f"task {name!r} is not ported yet (ROADMAP A5: the other fly "
-            "tasks; A7: rodent and humanoid)")
-    return getattr(fly_envs, name)(device=device)
+            f"task {name!r} is not ported yet (ROADMAP A5: "
+            "vision_guided_flight; A7: rodent and humanoid)")
+    return getattr(fly_envs, PORTED[name])(device=device)
 
 
 def parse_args(argv=None):

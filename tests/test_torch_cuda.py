@@ -36,9 +36,18 @@ def _imitation_parent():
     return WI.load_model()["dof_parentid"]
 
 
+def _flight_parent():
+    """flight_imitation's dof tree: the free root above the wing and the
+    remaining body joints, 42 dofs (from the committed model)."""
+    from flybody_tpu_torch.tasks import flight_imitation as FI
+    return FI.load_model()["dof_parentid"]
+
+
 def _problem(device, dtype, B=8, **shape):
     if shape.pop("imitation_tree", False):
         shape["parent"] = _imitation_parent()
+    if shape.pop("flight_tree", False):
+        shape["parent"] = _flight_parent()
     p = SK.random_rows_problem(B=B, seed=1, **shape)
     tree = TL.build_tree_meta(p["parent"])
     ld, dinv = TL.factor(tree, torch.as_tensor(p["Ms"], device=device).to(
@@ -226,6 +235,19 @@ def test_smem_at_walk_imitation():
     assert (tree.nv, t["n_up"]) == (105, 481)
 
 
+def test_smem_at_flight():
+    """flight_imitation's 42-dof tree at its 64 rows takes the narrow
+    instance: the register tile's 160 columns cover 64 rows, and the
+    block's shared memory is a third of walk_on_ball's."""
+    tree = TL.build_tree_meta(np.asarray(_flight_parent(), np.int32))
+    t = SK.pack_tables(tree)
+    assert (tree.nv, tree.nM, t["n_up"]) == (42, 421, 379)
+    assert SK.tile_cpl(64) == SK.CPL_NARROW == 5
+    SK.check_shape("solve_rows", tree.nv, 64)
+    assert SK.smem_bytes(tree.nv, 64, tree.nM, t["n_tab"],
+                         t["n_up"]) == 31984
+
+
 def test_admm_w_layout():
     """admm_iterate's kernel reads W in place: inverse_operator's layout
     passes, a batch-minor contiguous W is refused."""
@@ -260,6 +282,7 @@ def test_profile_cuts_apply():
 RAGGED = {   # nv, kl, kc: the fly's shapes and ragged register tiles
     "fly": dict(nv=105, kl=32, kc=40),
     "imitation": dict(imitation_tree=True, kl=32, kc=48),
+    "flight": dict(flight_tree=True, kl=16, kc=16),
     "wide_min": dict(nv=105, kl=2, kc=53),
     "wide_max": dict(nv=112, kl=0, kc=64),
     "ragged": dict(nv=37, kl=5, kc=11),
@@ -273,10 +296,12 @@ RAGGED = {   # nv, kl, kc: the fly's shapes and ragged register tiles
 @pytest.mark.parametrize("shape", list(RAGGED), ids=list(RAGGED))
 def test_kernel_matches_plain_on_card(shape):
     """The CUDA kernel against its plain version (float32, B=256), at the
-    fly's shapes, at walk_imitation's (the free-root tree, R = 176) and at
-    shapes that leave ragged register tiles: nv and R not multiples of the
-    tile, kl = 0, nv = 112 and R = 159 (just under the narrow instance's
-    160), R = 161 and 192 (the wide instance's first and last)."""
+    fly's shapes, at walk_imitation's (the free-root tree, R = 176), at
+    flight_imitation's (its 42-dof tree, R = 64, the narrow instance's
+    tile padded over 96 empty columns) and at shapes that leave ragged
+    register tiles: nv and R not multiples of the tile, kl = 0, nv = 112
+    and R = 159 (just under the narrow instance's 160), R = 161 and 192
+    (the wide instance's first and last)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
     sh = RAGGED[shape]
@@ -409,6 +434,30 @@ def test_new_kernels_refuse_float64_on_card():
         AK.admm_iterate(*_admm_problem("cuda", torch.float64).values(),
                         **ADMM_KW)
     assert AK.admm_iterate.launches == n0
+
+
+@pytest.mark.cuda
+def test_flight_imitation_on_card():
+    """fly_envs.flight_imitation() builds on "cuda" by default and one
+    control step of 64 envs launches solve_rows once per substep (4),
+    with the wing fluid acting in every env and finite observations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    from flybody_tpu_torch.fly_envs import flight_imitation
+    env = flight_imitation()
+    assert env.device.type == "cuda" and env.n_substeps == 4
+    state = env.reset(64, torch.Generator("cuda").manual_seed(0))
+    lo, hi = env.action_spec()
+    mid = torch.as_tensor((lo + hi) / 2, dtype=torch.float32,
+                          device="cuda")[None].expand(64, -1)
+    n0 = SK.solve_rows.launches
+    state = env.autoreset_step(state, mid)
+    torch.cuda.synchronize()
+    assert SK.solve_rows.launches == n0 + 4
+    assert bool((state.data.qfrc_fluid.abs().amax(dim=0) > 0).all())
+    for v in state.obs.values():
+        assert bool(torch.isfinite(v).all())
+    assert sum(v.shape[1] for v in state.obs.values()) == 80
 
 
 @pytest.mark.cuda

@@ -43,7 +43,12 @@ def test_import_leaves_jax_unloaded():
             "flybody_tpu_torch.physics.bridge, "
             "flybody_tpu_torch.ops.solver_kernels, "
             "flybody_tpu_torch.agents.train, flybody_tpu_torch.train_dmpo, "
-            "flybody_tpu_torch.io.checkpoint; "
+            "flybody_tpu_torch.io.checkpoint, "
+            "flybody_tpu_torch.tasks.flight_imitation, "
+            "flybody_tpu_torch.tasks.pattern_generators, "
+            "flybody_tpu_torch.tasks.task_utils, "
+            "flybody_tpu_torch.tasks.template_task, "
+            "flybody_tpu_torch.envs.wrappers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -70,3 +75,18 @@ def test_walk_imitation_needs_cuda_unless_told_otherwise():
     env = walk_imitation(device="cpu")
     assert env.device.type == "cpu"
     assert env.task.dataset.lengths.device.type == "cpu"
+
+
+@pytest.mark.parametrize("factory", ["flight_imitation", "template_task"])
+def test_flight_and_template_need_cuda_unless_told_otherwise(factory):
+    from flybody_tpu_torch import fly_envs
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    make = getattr(fly_envs, factory)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    env = make(device="cpu")
+    assert env.device.type == "cpu"
+    if factory == "flight_imitation":
+        assert env.task.dataset.lengths.device.type == "cpu"
+        assert env.task.wbpg.table.device.type == "cpu"

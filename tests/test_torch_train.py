@@ -263,7 +263,9 @@ def test_trainer_needs_cuda_unless_told_otherwise():
     with pytest.raises(NotImplementedError, match="A6"):
         DMPOTrainer(_ToyEnv(), TrainerConfig(network="vision"))
     with pytest.raises(NotImplementedError, match="A5"):
-        train_dmpo.make_env("flight_imitation", "cpu")
+        train_dmpo.make_env("vision_guided_flight", "cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        train_dmpo.make_env("rodent_escape_bowl", "cpu")
 
 
 @pytest.mark.parametrize("flag,value", [
