@@ -21,9 +21,13 @@ Phases (each prints its lines; any failure exits non-zero):
               with the solver loop switched off (where the time goes)
   6. stages   the stage split of the same solve on phase 5's fly inputs:
               upsolve_build_yd, upsolve_yd (on J^T of the same rows, held
-              against upsolve_build_yd) and apgd_iterate (its f held
-              against solve_rows' f) against their plain versions, and
-              solve_fused(_stage="yd" / "apgd") launching them
+              against upsolve_build_yd and against its plain version) and
+              apgd_iterate (its f held against solve_rows' f) against
+              their plain versions, and solve_fused(_stage="yd" / "apgd")
+              launching them; upsolve_yd's library yardstick, one batched
+              torch.linalg.solve_triangular on the dense factor L^T D^{1/2}
+              (its Yd only, not b), timed on env-major tensors made before
+              the clock starts
   7. solvers  contact_solver "apgd" and "admm": one substep of 4 envs on
               the card against the CPU as in phase 4, each solver's qacc
               distance from an 800-iteration float64 APGD solve; then
@@ -54,7 +58,10 @@ Phases (each prints its lines; any failure exits non-zero):
               solver); one substep of 4 envs on the card against the CPU
               as in phase 4; solve_rows against its plain version on the
               final state's inputs as in phase 5, its time with and
-              without the solver loop
+              without the solver loop; solve_rows' wide instance on random
+              inputs over walk_imitation's tree at 176 rows; upsolve_yd
+              against its plain version on J^T of the final state's rows,
+              timed
  10. flight   flight_imitation (the winged fly in air, the wing fluid, the
               wing-beat pattern generator; solve_rows at 64 rows over 42
               dofs, the kernel's narrow instance) at B=4096, float32: reset
@@ -68,13 +75,15 @@ Phases (each prints its lines; any failure exits non-zero):
               the solver loop. Then the template task (the free fly on a
               floor, contact solver "apgd"): 8 envs, one control step,
               finite obs and no hand kernel launched
- 11. registers, shared memory, resident blocks per SM and local (spill)
-     bytes of every kernel (solve_rows in both instances and at flight's
-     shapes); the kernel table as JSON ("launches" on the main path of
-     phase 3 or 6-7, "launches_train" in phase 8, solve_rows'
-     "launches_imitation", "ms_imitation", "plain_ms_imitation" and
-     "bound_ms_imitation" in phase 9 and the same "*_flight" keys in phase
-     10), the card line, the result line
+ 11. registers, shared memory, resident blocks and warps per SM and local
+     (spill) bytes of every kernel (solve_rows in both instances and at
+     flight's shapes), also as each kernel row's "occupancy"; the kernel
+     table as JSON ("launches" on the main path of phase 3 or 6-7,
+     "launches_train" in phase 8, solve_rows' "launches_imitation",
+     "ms_imitation", "plain_ms_imitation" and "bound_ms_imitation" in phase
+     9 and the same "*_flight" keys in phase 10, upsolve_yd's
+     "ms_imitation", "plain_ms_imitation" and "bound_ms_imitation" in phase
+     9), the card line, the result line
 """
 
 from __future__ import annotations
@@ -671,6 +680,23 @@ def main() -> int:
         fail(f"upsolve_yd path launches {launched4}")
     err4 = hold("upsolve_yd vs upsolve_build_yd", ("yd", "b"), got4, got3,
                 None, rel32=rel32_3)
+    want4 = SK.upsolve_yd_reference(tree, jt, *up_in)
+    want4_64 = SK.upsolve_yd_reference(tree, jt.double(),
+                                       *(fly64[k] for k in UP_ARGS))
+    torch.cuda.synchronize()
+    err4 = max(err4, hold("upsolve_yd", ("yd", "b"), got4, want4, want4_64))
+    # the library yardstick: Yd = U^{-1} J^T with U = L^T D^{1/2} dense,
+    # both env-major and made before the clock starts (Yd only, not b)
+    lib_u = SK.upsolve_dense_factor(tree, fly_args["ld"], fly_args["dinv"])
+    lib_j = jt.permute(2, 0, 1).contiguous()
+    lib_yd = torch.linalg.solve_triangular(lib_u, lib_j, upper=True)
+    torch.cuda.synchronize()
+    print(f"  upsolve_yd library yardstick (solve_triangular, Yd only) vs "
+          f"plain: max_rel {max_rel(lib_yd.permute(1, 2, 0), want4[0]):.3e}",
+          flush=True)
+    lib4_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
+        lib_u, lib_j, upper=True), 20)
+    del lib_yd
 
     # apgd_iterate on upsolve_build_yd's Yd: f as solve_rows' f
     yd, bvec = got3
@@ -709,8 +735,9 @@ def main() -> int:
     flops2 = SK.apgd_iterate_work(m.nv, R, B, kw["iterations"],
                                   kw["noslip_iterations"],
                                   kw["power_iters"])
-    # library_ms None for the three: no single PyTorch call computes the
-    # J build + tree up-solve + rhs, the sparse up-solve + rhs, or APGD
+    # library_ms None for two: no single PyTorch call computes the J build
+    # + tree up-solve + rhs, or APGD; upsolve_yd's is the dense triangular
+    # solve of its Yd (not b)
     rows["upsolve_build_yd"] = kernel_row(
         "upsolve_build_yd", "solve_rows.cu",
         "flybody_tpu/ops/solver_kernels.py:218",
@@ -723,7 +750,10 @@ def main() -> int:
         "flybody_tpu/ops/solver_kernels.py:84", launched4["upsolve_yd"],
         err4, cuda_ms(lambda: SK.upsolve_yd(tree, jt, *up_in), 20),
         cuda_ms(lambda: SK.upsolve_yd_reference(tree, jt, *up_in), 3),
-        flops4, nbytes(jt, *up_in) + yd_bytes)
+        flops4, nbytes(jt, *up_in) + yd_bytes, library_ms=lib4_ms)
+    print(f"kernel: upsolve_yd {rows['upsolve_yd']['ms']:.3f} ms against "
+          f"its library yardstick (Yd only) {lib4_ms:.3f} ms | {smi}",
+          flush=True)
     rows["apgd_iterate"] = kernel_row(
         "apgd_iterate", "solve_rows.cu",
         "flybody_tpu/ops/solver_kernels.py:410",
@@ -732,7 +762,8 @@ def main() -> int:
         cuda_ms(lambda: SK.apgd_iterate_reference(yd, bvec, *apgd_in,
                                                   **kw), 3),
         flops2, nbytes(yd, bvec, *apgd_in, *got2))
-    del jt, got3, got4, want3, want3_64, yd, bvec
+    del jt, got3, got4, want3, want3_64, want4, want4_64, yd, bvec, lib_u, \
+        lib_j
 
     # ---- 7. the other contact solvers ------------------------------------
     cpu64 = with_solver(cpu[f64], "apgd")
@@ -958,7 +989,47 @@ def main() -> int:
                     lambda dt_: WI.make_walk_imitation("cpu",
                                                        dtype=dt_).model,
                     (108, 176, SK.CPL_WIDE))
-    del state_i, con, pen, taken
+    # the wide instance on random inputs over walk_imitation's tree
+    p_w = SK.random_rows_problem(B, seed=0, nbody=mi.nbody, kl=32, kc=48,
+                                 parent=np.asarray(mi.dof_parentid))
+    ld_w, dinv_w = TL.factor(mi.tree, torch.as_tensor(p_w["Ms"], dtype=f32,
+                                                      device=dev))
+    rnd_w = {k: torch.as_tensor(p_w[k], device=dev).to(
+        torch.int32 if p_w[k].dtype == np.int32 else f32)
+        for k in fly_args if k not in ("ld", "dinv")}
+    rnd_w.update(ld=ld_w, dinv=dinv_w)
+    check_rows("random wide", mi.tree, rnd_w,
+               dict(rnd_kw, kl=32, kc=48))
+    del rnd_w, p_w
+    # upsolve_yd at 176 rows: J^T of the final state's rows
+    args_i = SF.assemble(mi, F.smooth_forward(mi, state_i.data))["args"]
+    row_i = [args_i[k] for k in ROW_ARGS]
+    up_i = row_i[7:]
+    jt_i = SK.build_jt_reference(*row_i[:7]).contiguous()
+    got4_i = SK.upsolve_yd(mi.tree, jt_i, *up_i)
+    want4_i = SK.upsolve_yd_reference(mi.tree, jt_i, *up_i)
+    want4_i64 = SK.upsolve_yd_reference(mi.tree, jt_i.double(),
+                                        *(as64(x) for x in up_i))
+    torch.cuda.synchronize()
+    err4_i = hold("imitation upsolve_yd", ("yd", "b"), got4_i, want4_i,
+                  want4_i64)
+    ms4_i = cuda_ms(lambda: SK.upsolve_yd(mi.tree, jt_i, *up_i), 20)
+    pms4_i = cuda_ms(lambda: SK.upsolve_yd_reference(mi.tree, jt_i, *up_i),
+                     3)
+    b4_i, by4_i = bound(SK.upsolve_yd_work(mi.nv, R_i, B,
+                                           len(TL.flat_up(mi.tree)),
+                                           build=False),
+                        nbytes(jt_i, *up_i, *got4_i))
+    print(f"kernel: upsolve_yd imitation (nv {mi.nv}, R {R_i}) B={B} kernel "
+          f"{ms4_i:.3f} ms, plain {pms4_i:.3f} ms, bound {b4_i:.4f} ms "
+          f"({by4_i}) | {smi}", flush=True)
+    rows["upsolve_yd"].update(max_abs_err_imitation=err4_i,
+                              ms_imitation=ms4_i,
+                              plain_ms_imitation=pms4_i,
+                              bound_ms_imitation=b4_i,
+                              bound_by_imitation=by4_i)
+    del state_i, con, pen, taken, args_i, row_i, up_i, jt_i, got4_i, \
+        want4_i, want4_i64
 
     # ---- 10. flight_imitation --------------------------------------------
     env_f = flight_imitation()
@@ -1005,26 +1076,34 @@ def main() -> int:
     # ---- 11. result ------------------------------------------------------
     nM = fly_args["ld"].shape[0]
     tabs = SK.pack_tables(m.tree)
-    for name, info in (
-            ("solve_rows", SK.kernel_info("solve_rows", m.nv, R, nM, tabs)),
-            ("solve_rows at walk_imitation",
-             SK.kernel_info("solve_rows", mi.nv, R_i, mi.tree.nM,
-                            SK.pack_tables(mi.tree))),
-            ("solve_rows at flight_imitation",
-             SK.kernel_info("solve_rows", mf.nv, R_f, mf.tree.nM,
-                            SK.pack_tables(mf.tree))),
-            ("upsolve_build_yd / upsolve_yd",
-             SK.kernel_info("upsolve", m.nv, R, nM, tabs)),
-            ("apgd_iterate", SK.kernel_info("apgd_iterate", m.nv, R, nM,
-                                            tabs)),
-            ("admm_iterate", AK.kernel_info(n_rows))):
+    occupancy = (
+        ("solve_rows", "", SK.kernel_info("solve_rows", m.nv, R, nM, tabs)),
+        ("solve_rows", "_imitation",
+         SK.kernel_info("solve_rows", mi.nv, R_i, mi.tree.nM,
+                        SK.pack_tables(mi.tree))),
+        ("solve_rows", "_flight",
+         SK.kernel_info("solve_rows", mf.nv, R_f, mf.tree.nM,
+                        SK.pack_tables(mf.tree))),
+        ("upsolve_build_yd", "",
+         SK.kernel_info("upsolve_build_yd", m.nv, R, nM, tabs)),
+        ("upsolve_yd", "", SK.kernel_info("upsolve_yd", m.nv, R, nM, tabs)),
+        ("apgd_iterate", "",
+         SK.kernel_info("apgd_iterate", m.nv, R, nM, tabs)),
+        ("admm_iterate", "", AK.kernel_info(n_rows)))
+    for name, at, info in occupancy:
         cpl = (f" ({info['cpl']} columns per lane)" if "cpl" in info
                else "")
-        print(f"occupancy: {name}{cpl}: {info['regs']} registers per "
-              f"thread, {info['local_bytes']} B local (spill) per thread, "
-              f"shared memory {info['static_smem']} B static + "
-              f"{info['dynamic_smem']} B dynamic per block, "
-              f"{info['blocks_per_sm']} blocks per SM", flush=True)
+        print(f"occupancy: {name}{' at ' + at[1:] if at else ''}{cpl}: "
+              f"{info['regs']} registers per thread, {info['local_bytes']} B "
+              f"local (spill) per thread, shared memory "
+              f"{info['static_smem']} B static + {info['dynamic_smem']} B "
+              f"dynamic per block, {info['blocks_per_sm']} blocks and "
+              f"{info['warps_per_sm']} warps per SM", flush=True)
+        rows[name][f"occupancy{at}"] = {
+            "regs": info["regs"], "spill_bytes": info["local_bytes"],
+            "smem_bytes": info["static_smem"] + info["dynamic_smem"],
+            "blocks_per_sm": info["blocks_per_sm"],
+            "warps_per_sm": info["warps_per_sm"]}
     order = ("solve_rows", "apgd_iterate", "upsolve_build_yd", "upsolve_yd",
              "admm_iterate")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)

@@ -128,10 +128,12 @@ def check_w_layout(W: torch.Tensor) -> None:
 
 
 def kernel_info(rows: int) -> dict:
-    """Registers, shared memory and resident blocks per SM of the kernel
-    at ``rows`` rows (``cuda_build.kernel_info``)."""
-    return cuda_build.kernel_info("admm_iterate", 0, -(-rows // 32) * 32,
+    """Registers, shared memory, resident blocks and warps per SM of the
+    kernel at ``rows`` rows (``cuda_build.kernel_info``)."""
+    warps = -(-rows // 32)
+    info = cuda_build.kernel_info("admm_iterate", 0, 32 * warps,
                                   smem_bytes(rows))
+    return dict(info, warps_per_sm=info["blocks_per_sm"] * warps)
 
 
 _P = ctypes.c_void_p

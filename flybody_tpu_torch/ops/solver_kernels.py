@@ -73,6 +73,25 @@ def upsolve_yd_reference(tree, jt, ld, dinv, qacc_smooth, qvel, kcoef,
     return yd, b
 
 
+def upsolve_dense_factor(tree, ld, dinv):
+    """U = L^T D^{1/2}, dense, upper triangular and env-major (B, nv, nv),
+    so that Yd = U^{-1} J^T: one batched ``torch.linalg.solve_triangular(
+    U, jt.permute(2, 0, 1), upper=True)`` gives ``upsolve_yd``'s Yd (not
+    its b). chip_smoke.py times that call as the library yardstick of
+    ``upsolve_yd``; the port solves with the tree sweeps instead."""
+    nv, B = dinv.shape
+    off = np.flatnonzero(tree.entry_i != tree.entry_j)
+    ei = torch.as_tensor(tree.entry_i[off], device=ld.device)
+    ej = torch.as_tensor(tree.entry_j[off], device=ld.device)
+    sd = torch.rsqrt(dinv)                           # D^{1/2}, (nv, B)
+    u = ld.new_zeros((B, nv, nv))
+    u[:, ej, ei] = (ld[torch.as_tensor(off, device=ld.device)]
+                    * sd[ei]).t()
+    iv = torch.arange(nv, device=ld.device)
+    u[:, iv, iv] = sd.t()
+    return u
+
+
 def _rsum(x):
     """Sum over rows (dim 0), keeping it: (R, B) -> (1, B)."""
     return torch.sum(x, dim=0, keepdim=True)
@@ -303,28 +322,43 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "solve_rows_launch": ([_P] * 19          # inputs (maskd as bits)
                           + [_P] * 4         # outputs f, v, qfrc, dqacc
-                          + [_P]             # the packed tables
-                          + [_I] * 14        # sizes and iteration counts
+                          + [_P] * 2         # the packed tables, the chain
+                          + [_I] * 15        # sizes and iteration counts
                           + [_P]),           # stream
-    "upsolve_launch": ([_I] + [_P] * 15      # build flag, inputs
+    "upsolve_launch": ([_P] * 14             # inputs (maskd as bits)
                        + [_P] * 2            # outputs yd, b
-                       + [_P]                # the packed tables
-                       + [_I] * 6            # sizes
+                       + [_P] * 2            # the packed tables, the chain
+                       + [_I] * 9            # sizes
                        + [_P]),              # stream
+    "upsolve_yd_launch": ([_P] * 8           # inputs
+                          + [_P] * 2         # outputs yd, b
+                          + [_P]             # the packed tables
+                          + [_I] * 9         # sizes
+                          + [_P]),           # stream
     "apgd_launch": ([_P] * 7 + [_P] * 3      # inputs, outputs f, ystar, v
                     + [_I] * 9 + [_P]),      # sizes and counts, stream
 }
 
-# The kernels' shape limits (csrc/solve_rows.cu): 256 threads per env, Yd
-# held in registers as 8 warps x 14 dofs by 32 lanes x CPL columns, in two
-# instances: CPL 5 takes R <= 160 rows, CPL 6 R <= 192. A launch takes the
-# narrower instance that holds R. Within them shared memory stays under
-# 227 kB per block (a chain of 112 dofs at 192 rows).
+# The kernels' shape limits (csrc/solve_rows.cu): one block of 256 threads
+# per env, Yd held as 8 warps x 14 dofs by 32 lanes x CPL column groups, in
+# two instances: CPL 5 takes R <= 160 rows, CPL 6 R <= 192 (its sixth
+# group read from shared memory, the first five in registers as in CPL 5).
+# A launch takes the narrower instance that holds R. Within them shared
+# memory stays under 227 kB per block (a chain of 112 dofs at 192 rows).
 THREADS = 256
 MAX_NV = 112
 CPL_NARROW, CPL_WIDE = 5, 6
 MAX_R_NARROW = 32 * CPL_NARROW
 MAX_R = 32 * CPL_WIDE
+# The top chain taken out of the up-sweep's pull: at most CHAIN dofs
+# (csrc CH).
+CHAIN = 6
+# upsolve_yd's block: YD_ENVS consecutive envs by YD_COLS columns (csrc
+# YE, YC), YD_PARTS threads per (env, column) pair, each on one part of
+# the dofs (csrc YQ).
+YD_ENVS, YD_COLS, YD_PARTS = 8, 16, 4
+YD_PAIRS = YD_ENVS * YD_COLS
+YD_THREADS = YD_PARTS * YD_PAIRS
 
 
 def tile_cpl(R: int) -> int:
@@ -359,39 +393,129 @@ def pack_tables(tree) -> dict:
     cptr  (nv + 1) and cidx (n_up): the up-sweep triplets (i, e, j) of
           ``flat_up``, packed and grouped by j, in up-sweep order within
           a group (the up-sweep pulled into each j, and L^T x for qfrc);
-    dn    the down-sweep triplets in ``flat_down`` order, packed;
-    sptr  (nseg + 1): where each dof's run of dn starts (one run per dof
-          with ancestors, in dn's order);
-    lptr  (nlev + 1): which runs belong to each depth level.
+          n_head = nv + 1 + n_up words, staged in shared memory;
+    push  (ndepth nv): L^{-1} x pushed root first, step l of dof i at
+          l nv + i: a | e << 7 for its ancestor a at depth l and the entry
+          e of L[i, a], -1 where i has no ancestor that deep.
 
-    Also the counts n_up, n_down, nseg, nlev and n_tab = len(tab)."""
+    Also n_up, n_head, ndepth (the tree's depth) and n_tab = len(tab), and
+    the top chain the kernels take out of the up-sweep's pull
+    (``top_chain``): its length ``nch``, the split point ``dsplit`` of the
+    dofs below between two threads (``split_points``; upsolve_yd's
+    ``ysplit`` between YD_PARTS) and ``chain``, n_chain = len(chain) int32
+    entry indices (-1: no entry, read as L = 0): L[i, k] for i >= nch,
+    k < CHAIN at (i - nch) CHAIN + k, then the chain's own L[i, j] at
+    (nv - nch) CHAIN + i CHAIN + j (empty when nch is 0)."""
     nv = tree.nv
     if nv > MAX_NV:
         raise ValueError(f"pack_tables: nv={nv} > {MAX_NV}")
-    up, dn = TL.flat_up(tree), TL.flat_down(tree)
+    up = TL.flat_up(tree)
     pu = _pack(up[:, 0], up[:, 1], up[:, 2])
     order = np.argsort(up[:, 2], kind="stable")
     cptr = np.concatenate([[0], np.cumsum(np.bincount(up[:, 2],
                                                       minlength=nv))])
-    pd = _pack(dn[:, 0], dn[:, 1], dn[:, 2])
-    starts = np.flatnonzero(np.r_[True, dn[1:, 0] != dn[:-1, 0]]) \
-        if len(dn) else np.zeros(0, np.int64)
-    sptr = np.r_[starts, len(dn)]
-    level_end = np.cumsum([len(t[0]) for t in tree.solve_down])
-    lptr = np.r_[0, np.searchsorted(starts, level_end)]
-    tab = np.concatenate([cptr, pu[order], pd, sptr, lptr]
+    entry = _entries(tree)
+    ndepth = max(len(a) for a in tree.anc_lists)
+    push = np.full((ndepth, nv), -1, np.int64)
+    for i, anc in enumerate(tree.anc_lists):
+        for depth, a in enumerate(reversed(anc)):
+            push[depth, i] = a | entry[(i, a)] << 7
+    tab = np.concatenate([cptr, pu[order], push.reshape(-1)]
                          ).astype(np.int32)
-    return dict(tab=tab, n_up=len(up), n_down=len(dn), nseg=len(starts),
-                nlev=len(tree.solve_down), n_tab=len(tab))
+    parent = _parents(tree)
+    m = top_chain(parent)
+    chain = _chain_entries(tree, m, entry)
+    return dict(tab=tab, n_up=len(up), n_head=nv + 1 + len(up),
+                ndepth=ndepth, n_tab=len(tab), nch=m,
+                dsplit=split_points(parent, m, np.diff(cptr), 2)[0],
+                ysplit=split_points(parent, m, np.diff(cptr), YD_PARTS),
+                chain=chain, n_chain=len(chain))
+
+
+def _entries(tree) -> dict:
+    """{(i, j): entry index of L[i, j]} over the factor's off-diagonal."""
+    return {(int(i), int(j)): e for e, (i, j) in enumerate(
+        zip(tree.entry_i, tree.entry_j)) if i != j}
+
+
+def _parents(tree) -> np.ndarray:
+    """Each dof's parent dof (-1 at a root), from the tree's ancestors."""
+    return np.array([a[0] if len(a) else -1 for a in tree.anc_lists],
+                    np.int64)
+
+
+def top_chain(parent) -> int:
+    """Length m of the top chain: dofs 0 .. m - 1 with each dof k < m the
+    parent of k + 1 from root dof 0, at most CHAIN of them, above every
+    other dof (each dof >= m descends from m - 1), as a free root's six
+    dofs are. 0 where no such chain has 2 dofs (a forest)."""
+    parent = np.asarray(parent)
+    n = 0
+    while n < min(CHAIN, len(parent)) and parent[n] == n - 1:
+        n += 1
+    for m in range(n, 1, -1):
+        if bool((parent[m:] >= m - 1).all()):
+            return m
+    return 0
+
+
+def _chain_entries(tree, m: int, entry: dict) -> np.ndarray:
+    """``pack_tables``' chain: the entry index of L[i, k] for each dof
+    i >= m and k < CHAIN, then of the chain's own L[i, j], -1 where L has
+    no entry (k >= m, or k no ancestor of i); ``entry`` from ``_entries``."""
+    if m == 0:
+        return np.zeros(0, np.int32)
+    nv = tree.nv
+    below = [[entry.get((i, k), -1) for k in range(CHAIN)]
+             for i in range(m, nv)]
+    own = [[entry.get((i, j), -1) if i < m else -1 for j in range(CHAIN)]
+           for i in range(CHAIN)]
+    return np.asarray(below + own, np.int32).reshape(-1)
+
+
+def split_points(parent, m: int, n_pull, parts: int) -> list:
+    """Where the kernels split a column's dofs below the top chain between
+    ``parts`` threads: boundaries m < d_1 <= ... <= d_{parts-1} <= nv that
+    best balance the parts [0, d_1) (with the chain, resolved after),
+    [d_1, d_2), ..., [d_{parts-1}, nv), each d a subtree boundary: no dof of
+    [d, nv) has an ancestor in [m, d) (each such dof's parent is < m or
+    >= d), so each part's pull stays inside it. A boundary at nv leaves a
+    part empty. ``n_pull``: each dof's up-sweep entries. The weights count
+    a thread's shared-memory loads and FMAs: J build and scaling ~21 per
+    dof, the chain sums ~10 per dof below the chain, the pull ~5 per entry
+    and ~6 per dof."""
+    parent = np.asarray(parent)
+    nv = len(parent)
+    iv = np.arange(nv)
+    cost = 21.0 + np.where(iv >= m, 10.0 + 6.0 + 5.0 * np.asarray(n_pull),
+                           0.0)
+    acc = np.concatenate([[0.0], np.cumsum(cost)])
+    cuts = [d for d in range(m + 1, nv)
+            if bool(((parent[d:] < m) | (parent[d:] >= d)).all())] + [nv]
+    # best[k][d]: the least largest part when dofs [0, d) form k + 1 parts
+    best = {(0, d): acc[d] + 15.0 for d in cuts}
+    back = {}
+    for k in range(1, parts):
+        for d in cuts:
+            best[k, d], back[k, d] = min(
+                (max(best[k - 1, c], acc[d] - acc[c]), c)
+                for c in cuts if c <= d)
+    out, d = [nv], nv
+    for k in range(parts - 1, 0, -1):
+        d = back[k, d]
+        out.append(d)
+    return out[::-1][:-1]
 
 
 def _tables(tree, device):
-    """``pack_tables`` with ``tab`` on ``device`` (cached on the tree)."""
+    """``pack_tables`` with ``tab`` and ``chain`` on ``device`` (cached on
+    the tree)."""
     key = ("sk_tab", str(device))
     t = tree._dev.get(key)
     if t is None:
         t = pack_tables(tree)
-        t["tab"] = torch.as_tensor(t["tab"], device=device).contiguous()
+        for k in ("tab", "chain"):
+            t[k] = torch.as_tensor(t[k], device=device).contiguous()
         tree._dev[key] = t
     return t
 
@@ -458,17 +582,44 @@ def on_cpu(who: str, x: torch.Tensor) -> bool:
     return False
 
 
-def smem_bytes(nv: int, R: int, nM: int, n_tab: int, n_up: int) -> int:
+def smem_bytes(nv: int, R: int, nM: int, n_head: int, n_up: int,
+               n_chain: int) -> int:
     """Dynamic shared memory of one block, in bytes. Mirrors the kernels'
     carve-up (``carve`` in csrc/solve_rows.cu) in the instance that takes
     R rows (32 ``tile_cpl(R)`` of them): per-warp y slots, the warp
-    partials of Yd^T y and of the block sums, d6, Yd with an odd row
-    stride, ld, six dof vectors, eight row vectors, the n_tab words of
-    tables and the n_up up-sweep entries decoded (L[e], i * S)."""
+    partials of Yd^T y and of the block sums, eleven row vectors, d6 with
+    qvel and qacc_smooth (8 words a dof), the top chain's L decoded
+    (n_chain), Yd with an odd row stride, ld, five dof vectors, the
+    up-sweep's n_up L entries and the n_head words of the tables' head."""
     nwarp = THREADS // 32
     mr = 32 * tile_cpl(R)
-    return 4 * (nwarp * 16 + nwarp * mr + 4 * nwarp + 6 * nv
-                + nv * (R | 1) + nM + 6 * nv + 8 * mr + n_tab + 2 * n_up)
+    return 4 * (nwarp * 16 + nwarp * mr + 4 * nwarp + 11 * mr + 8 * nv
+                + n_chain + nv * (R | 1) + nM + 5 * nv + n_up + n_head)
+
+
+def upsolve_yd_grid(R: int, B: int) -> tuple:
+    """upsolve_yd's grid: (env tiles, column tiles) of YD_ENVS envs by
+    YD_COLS columns (csrc ``upsolve_yd_launch``); the last of each may be
+    ragged."""
+    return -(-B // YD_ENVS), -(-R // YD_COLS)
+
+
+def upsolve_yd_pair(bx: int, by: int, t: int) -> tuple:
+    """The (env, column) that thread t of upsolve_yd's block (bx, by)
+    takes, as the kernel computes it (threads t, t + YD_PAIRS, ... share a
+    pair, each on one part of the dofs); past B or R it is masked."""
+    p = t % YD_PAIRS
+    return bx * YD_ENVS + p % YD_ENVS, by * YD_COLS + p // YD_ENVS
+
+
+def upsolve_yd_smem(nv: int, n_up: int) -> int:
+    """upsolve_yd's dynamic shared memory per block, in bytes (csrc
+    ``upsolve_yd_kernel``): the pairs' columns (nv per pair); per env
+    qvel and qacc_smooth and the rhs sums of the pairs' other parts, then
+    in the same place the up-sweep's L entries (n_up); sqrt(dinv); then
+    cptr | cidx."""
+    region = max(n_up, 2 * nv + 2 * (YD_PARTS - 1) * YD_COLS)
+    return 4 * (nv * YD_PAIRS + (region + nv) * YD_ENVS + nv + 1 + n_up)
 
 
 def check_shape(who: str, nv: int, R: int) -> None:
@@ -479,18 +630,25 @@ def check_shape(who: str, nv: int, R: int) -> None:
 
 
 def kernel_info(kernel: str, nv: int, R: int, nM: int, tables: dict) -> dict:
-    """Registers, shared memory, resident blocks per SM and local (spill)
-    bytes per thread of ``kernel`` ("solve_rows", "upsolve" or
-    "apgd_iterate") in the instance that takes R rows, at these shapes,
-    with the tree's ``pack_tables`` (``cuda_build.kernel_info``)."""
-    which = ("solve_rows", "upsolve", "apgd_iterate").index(kernel)
-    n_up = tables["n_up"]
-    smem = (smem_bytes(nv, R, nM, tables["n_tab"], n_up), smem_bytes(
-        nv, R, nM, nv + 1 + n_up, n_up), smem_bytes(nv, R, 0, 0, 0))[which]
+    """Registers, shared memory, resident blocks and warps per SM and local
+    (spill) bytes per thread of ``kernel`` ("solve_rows",
+    "upsolve_build_yd", "apgd_iterate", in the instance that takes R rows,
+    or "upsolve_yd") at these shapes, with the tree's ``pack_tables``
+    (``cuda_build.kernel_info``)."""
+    n_up, n_ch = tables["n_up"], tables["n_chain"]
+    if kernel == "upsolve_yd":
+        info = cuda_build.kernel_info("solve_rows", 6, YD_THREADS,
+                                      upsolve_yd_smem(nv, n_up))
+        return dict(info, warps_per_sm=info["blocks_per_sm"]
+                    * YD_THREADS // 32)
+    which = ("solve_rows", "upsolve_build_yd", "apgd_iterate").index(kernel)
+    smem = (smem_bytes(nv, R, 0, 0, 0, 0) if kernel == "apgd_iterate" else
+            smem_bytes(nv, R, nM, tables["n_head"], n_up, n_ch))
     if tile_cpl(R) == CPL_WIDE:
         which += 3
-    return dict(cuda_build.kernel_info("solve_rows", which, THREADS, smem),
-                cpl=tile_cpl(R))
+    info = cuda_build.kernel_info("solve_rows", which, THREADS, smem)
+    return dict(info, cpl=tile_cpl(R),
+                warps_per_sm=info["blocks_per_sm"] * THREADS // 32)
 
 
 def _row_checks(nv, R, B, nbody, nM, d6, u6, b1, b2, lim_sign, lim_dadr,
@@ -542,7 +700,7 @@ def solve_rows(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
     check_args("solve_rows", checks, dev)
     check_shape("solve_rows", nv, R)
     tb = _tables(tree, dev)
-    smem = smem_bytes(nv, R, nM, tb["n_tab"], tb["n_up"])
+    smem = smem_bytes(nv, R, nM, tb["n_head"], tb["n_up"], tb["n_chain"])
     ptrs = [x.data_ptr() for _, x, _, _ in checks]
     ptrs[6] = _mask_bits_cached(maskd).data_ptr()
     f = torch.empty((R, B), dtype=f32, device=dev)
@@ -551,38 +709,15 @@ def solve_rows(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
     dqacc = torch.empty((nv, B), dtype=f32, device=dev)
     _launch("solve_rows", "solve_rows_launch", *ptrs,
             f.data_ptr(), v.data_ptr(), qfrc.data_ptr(), dqacc.data_ptr(),
-            tb["tab"].data_ptr(), nv, R, B, nM, kl, kc, tb["n_up"],
-            tb["n_down"], tb["nseg"], tb["nlev"], iterations,
-            noslip_iterations, power_iters, smem,
+            tb["tab"].data_ptr(), tb["chain"].data_ptr(), nv, R, B, nM, kl,
+            kc, tb["n_up"], tb["ndepth"], tb["nch"], tb["dsplit"],
+            tb["n_chain"], iterations, noslip_iterations, power_iters, smem,
             torch.cuda.current_stream(dev).cuda_stream)
     solve_rows.launches += 1
     return f, v, qfrc, dqacc
 
 
 solve_rows.launches = 0
-
-
-def _upsolve_launch(who, tree, build, jt, row_args, ld, dinv, qacc_smooth,
-                    qvel, kcoef, bcoef, posr, nv, R, B):
-    """Shared launch of upsolve_build_yd (build) and upsolve_yd: checks
-    the shape, then launches (row_args' maskd goes as bits)."""
-    dev = ld.device
-    nM = ld.shape[0]
-    check_shape(who, nv, R)
-    tb = _tables(tree, dev)
-    smem = smem_bytes(nv, R, nM, nv + 1 + tb["n_up"], tb["n_up"])
-    if build:
-        row_args = (*row_args[:6], _mask_bits_cached(row_args[6]))
-    yd = torch.empty((nv, R, B), dtype=torch.float32, device=dev)
-    b = torch.empty((R, B), dtype=torch.float32, device=dev)
-    ptr = lambda x: None if x is None else x.data_ptr()
-    _launch(who, "upsolve_launch", int(build), ptr(jt),
-            *[ptr(x) for x in row_args], ld.data_ptr(), dinv.data_ptr(),
-            qacc_smooth.data_ptr(), qvel.data_ptr(), kcoef.data_ptr(),
-            bcoef.data_ptr(), posr.data_ptr(), yd.data_ptr(), b.data_ptr(),
-            tb["tab"].data_ptr(), nv, R, B, nM, tb["n_up"], smem,
-            torch.cuda.current_stream(dev).cuda_stream)
-    return yd, b
 
 
 def upsolve_build_yd(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
@@ -602,13 +737,23 @@ def upsolve_build_yd(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
     checks = _row_checks(nv, R, B, maskd.shape[0], ld.shape[0], d6, u6, b1,
                          b2, lim_sign, lim_dadr, maskd, ld, dinv,
                          qacc_smooth, qvel, kcoef, bcoef, posr)
-    check_args("upsolve_build_yd", checks, d6.device)
-    out = _upsolve_launch("upsolve_build_yd", tree, True, None,
-                          (d6, u6, b1, b2, lim_sign, lim_dadr, maskd), ld,
-                          dinv, qacc_smooth, qvel, kcoef, bcoef, posr, nv, R,
-                          B)
+    dev = d6.device
+    check_args("upsolve_build_yd", checks, dev)
+    check_shape("upsolve_build_yd", nv, R)
+    nM = ld.shape[0]
+    tb = _tables(tree, dev)
+    n_up = tb["n_up"]
+    smem = smem_bytes(nv, R, nM, tb["n_head"], n_up, tb["n_chain"])
+    ptrs = [x.data_ptr() for _, x, _, _ in checks]
+    ptrs[6] = _mask_bits_cached(maskd).data_ptr()
+    yd = torch.empty((nv, R, B), dtype=torch.float32, device=dev)
+    b = torch.empty((R, B), dtype=torch.float32, device=dev)
+    _launch("upsolve_build_yd", "upsolve_launch", *ptrs, yd.data_ptr(),
+            b.data_ptr(), tb["tab"].data_ptr(), tb["chain"].data_ptr(), nv,
+            R, B, nM, n_up, tb["nch"], tb["dsplit"], tb["n_chain"], smem,
+            torch.cuda.current_stream(dev).cuda_stream)
     upsolve_build_yd.launches += 1
-    return out
+    return yd, b
 
 
 upsolve_build_yd.launches = 0
@@ -625,18 +770,25 @@ def upsolve_yd(tree, jt, ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr):
                                     kcoef, bcoef, posr)
     nv, R, B = jt.shape
     f32 = torch.float32
-    check_args("upsolve_yd", [
+    dev = jt.device
+    checks = [
         ("jt", jt, (nv, R, B), f32), ("ld", ld, (ld.shape[0], B), f32),
         ("dinv", dinv, (nv, B), f32),
         ("qacc_smooth", qacc_smooth, (nv, B), f32),
         ("qvel", qvel, (nv, B), f32), ("kcoef", kcoef, (R, B), f32),
-        ("bcoef", bcoef, (R, B), f32), ("posr", posr, (R, B), f32)],
-        jt.device)
-    out = _upsolve_launch("upsolve_yd", tree, False, jt, (None,) * 7, ld,
-                          dinv, qacc_smooth, qvel, kcoef, bcoef, posr, nv, R,
-                          B)
+        ("bcoef", bcoef, (R, B), f32), ("posr", posr, (R, B), f32)]
+    check_args("upsolve_yd", checks, dev)
+    check_shape("upsolve_yd", nv, R)
+    tb = _tables(tree, dev)
+    yd = torch.empty((nv, R, B), dtype=f32, device=dev)
+    b = torch.empty((R, B), dtype=f32, device=dev)
+    _launch("upsolve_yd", "upsolve_yd_launch",
+            *[x.data_ptr() for _, x, _, _ in checks], yd.data_ptr(),
+            b.data_ptr(), tb["tab"].data_ptr(), nv, R, B, tb["n_up"],
+            tb["nch"], *tb["ysplit"], upsolve_yd_smem(nv, tb["n_up"]),
+            torch.cuda.current_stream(dev).cuda_stream)
     upsolve_yd.launches += 1
-    return out
+    return yd, b
 
 
 upsolve_yd.launches = 0
@@ -670,7 +822,7 @@ def apgd_iterate(yd, b, rreg, active, mu, f0, v0=None, *, kl: int, kc: int,
               ("v0", v0, (R, B), f32)]
     check_args("apgd_iterate", checks, dev)
     check_shape("apgd_iterate", nv, R)
-    smem = smem_bytes(nv, R, 0, 0, 0)
+    smem = smem_bytes(nv, R, 0, 0, 0, 0)
     f = torch.empty((R, B), dtype=f32, device=dev)
     ystar = torch.empty((nv, B), dtype=f32, device=dev)
     v = torch.empty((R, B), dtype=f32, device=dev)

@@ -1,9 +1,12 @@
 """Where the time of the solve_rows kernel goes, by cutting parts out.
 
-    python3 -m flybody_tpu_torch.profile_solve_rows [PACKAGE_DIR ...]
+    python3 -m flybody_tpu_torch.profile_solve_rows [--task TASK] [PKG_DIR ...]
 
-Builds walk_on_ball's solve_rows inputs on the card (B=4096, float32, two
-control steps at mid-range actions). Then, for each package directory
+Builds the solve_rows inputs of TASK (a ``fly_envs`` factory:
+walk_on_ball by default, R 152 rows, the narrow instance; walk_imitation,
+R 176, the wide one) on the card: B=4096, float32, a reset from a seeded
+CUDA generator and two control steps at mid-range actions. Then, for each
+package directory
 (default: this package; an older version unpacked with
 ``git archive <rev> flybody_tpu_torch | tar -x -C DIR`` is given as
 DIR/flybody_tpu_torch), it copies the package into ``_build/profile/``,
@@ -16,13 +19,14 @@ calls) in a fresh process for each version of the source:
 
 each with the main path's solver loop and with the loop off (iterations,
 noslip and power iterations 0). Prints one JSON line per package. The
-cuts are textual and know two versions of the source (before and after
-the register-tiled redesign); any other source raises. Needs a CUDA
-device.
+cuts are textual and know three versions of the source (the first port,
+the register-tiled redesign, and the one with the top chain out of the
+up-sweep's pull); any other source raises. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -33,17 +37,24 @@ PKG = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(PKG, "_build", "profile")
 INPUTS = os.path.join(SCRATCH, "fly_inputs.pt")
 
-# (start, end, replacement): the text from start up to end is replaced;
-# the first alternative whose start is found applies
+# Each cut lists alternatives, one per version of the source; an
+# alternative is a list of edits (start, end, replacement), each replacing
+# the text from start up to end. The first alternative whose first start
+# is found applies.
 _SWEEPS = [
-    ("    // ---- 7. qfrc = L^T", "    // ---- 7. qfrc = L^T",
-     "    return;\n"),
-    ("    if (r == 0) {\n        for (int k = 0; k < nv; ++k)\n",
-     "    __syncthreads();\n    for (int k = r; k < nv; k += T) {", ""),
+    [("    // ---- 7. qfrc = L^T", "    // ---- 7. qfrc = L^T",
+      "    return;\n")],
+    [("    if (r == 0) {\n        for (int k = 0; k < nv; ++k)\n",
+      "    __syncthreads();\n    for (int k = r; k < nv; k += T) {", "")],
 ]
 _UPSWEEP = [
-    ("    for (int j = nv - 1; j >= 0; --j) {\n", "    float dg = 0.0f;", ""),
-    ("    for (int t = 0; t < n_up; ++t) {\n", "    float dg = 0.0f;", ""),
+    # the pull, the top chain's sums and its resolution (both instances)
+    [("        pull(p, cptr, cidx, S, r, max(v0, m), v1);\n",
+      "    }\n    if (lower) {", ""),
+     ("    if (m > 0) chain_resolve(", "    *diag = ", "")],
+    [("    for (int j = nv - 1; j >= 0; --j) {\n", "    float dg = 0.0f;",
+      "")],
+    [("    for (int t = 0; t < n_up; ++t) {\n", "    float dg = 0.0f;", "")],
 ]
 CUTS = {"full": [], "no_sweeps": [_SWEEPS],
         "no_upsweep": [_SWEEPS, _UPSWEEP]}
@@ -72,29 +83,31 @@ print(json.dumps({"loop_on": ms(d["kw"]), "loop_off": ms(kw0)}))
 def cut(src: str, cuts) -> str:
     """``src`` with each cut applied (one alternative of each)."""
     for alternatives in cuts:
-        for start, end, repl in alternatives:
-            i = src.find(start)
-            if i >= 0:
+        for edits in alternatives:
+            if src.find(edits[0][0]) < 0:
+                continue
+            for start, end, repl in edits:
+                i = src.index(start)
                 j = src.index(end, i)
                 src = src[:i] + repl + src[j:]
-                break
+            break
         else:
             raise ValueError("profile_solve_rows: no cut matches this "
                              "version of csrc/solve_rows.cu")
     return src
 
 
-def make_inputs(B: int = 4096) -> None:
-    """walk_on_ball's solve_rows inputs after two control steps, saved."""
+def make_inputs(task: str = "walk_on_ball", B: int = 4096) -> None:
+    """``task``'s solve_rows inputs after two control steps, saved."""
     import torch
-    from flybody_tpu_torch.fly_envs import walk_on_ball
+    from flybody_tpu_torch import fly_envs
     from flybody_tpu_torch.physics import forward as F
     from flybody_tpu_torch.physics import solver_fused as SF
-    env = walk_on_ball()
+    env = getattr(fly_envs, task)()
     lo, hi = env.action_spec()
     mid = torch.as_tensor((lo + hi) / 2, dtype=torch.float32,
                           device="cuda")[None].expand(B, -1)
-    state = env.reset(B)
+    state = env.reset(B, torch.Generator("cuda").manual_seed(0))
     for _ in range(2):
         state = env.autoreset_step(state, mid)
     m = env.model
@@ -126,12 +139,17 @@ def profile(package: str) -> dict:
     return out
 
 
-def main(packages) -> None:
+def main(argv) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--task", default="walk_on_ball",
+                    choices=("walk_on_ball", "walk_imitation"))
+    ap.add_argument("packages", nargs="*", default=[PKG])
+    args = ap.parse_args(argv)
     os.makedirs(SCRATCH, exist_ok=True)
-    make_inputs()
-    for package in packages or [PKG]:
-        print(json.dumps({"package": package, **profile(package)}),
-              flush=True)
+    make_inputs(args.task)
+    for package in args.packages:
+        print(json.dumps({"task": args.task, "package": package,
+                          **profile(package)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -145,18 +145,17 @@ def _unpack(p):
 def test_pack_tables_drive_the_sweeps(nv):
     """The packed tables, walked as the kernel walks them, give the tree
     sweeps of tree_ldl: the up-sweep L^{-T} (pulled into each dof, last
-    to first), L^T x (one thread per target dof) and L^{-1} x (level by
-    level, one lane per dof), float64."""
+    to first), L^T x (one thread per target dof) and L^{-1} x (pushed
+    root first, one step per depth, each dof taking its ancestor at that
+    depth), float64."""
     p = SK.random_rows_problem(B=3, seed=4, nv=nv, nbody=5, kl=2, kc=2)
     tree = TL.build_tree_meta(p["parent"])
     ld, _ = TL.factor(tree, torch.as_tensor(p["Ms"]))
     t = SK.pack_tables(tree)
-    tab, n_up, n_down, nseg = t["tab"], t["n_up"], t["n_down"], t["nseg"]
-    cptr, cidx = tab[:nv + 1], tab[nv + 1:nv + 1 + n_up]
-    o = nv + 1 + n_up
-    dn, sptr = tab[o:o + n_down], tab[o + n_down:o + n_down + nseg + 1]
-    lptr = tab[o + n_down + nseg + 1:]
-    assert len(lptr) == t["nlev"] + 1 and t["n_tab"] == len(tab)
+    tab, n_up, n_head = t["tab"], t["n_up"], t["n_head"]
+    cptr, cidx = tab[:nv + 1], tab[nv + 1:n_head]
+    push = tab[n_head:].reshape(t["ndepth"], nv)
+    assert n_head == nv + 1 + n_up and t["n_tab"] == len(tab)
     x = torch.as_tensor(np.random.RandomState(5).randn(nv, 3))
 
     ref = x.clone()                                  # L^{-T} x, by level
@@ -180,13 +179,15 @@ def test_pack_tables_drive_the_sweeps(nv):
                                atol=1e-12)
 
     got = x.clone()                                  # L^{-1} x
-    for lev in range(t["nlev"]):
-        for sg in range(lptr[lev], lptr[lev + 1]):
-            i0 = _unpack(dn[sptr[sg]])[0]
-            for pk in dn[sptr[sg]:sptr[sg + 1]]:
-                i, e, j = _unpack(pk)
-                assert i == i0
-                got[i] -= ld[e] * got[j]
+    for lev in range(t["ndepth"]):
+        written = set()
+        for i in range(nv):
+            pk = push[lev, i]
+            if pk >= 0:
+                a, e = pk & 127, pk >> 7
+                assert len(tree.anc_lists[a]) == lev and a not in written
+                got[i] -= ld[e] * got[a]
+                written.add(i)
     torch.testing.assert_close(got, TL.solve_down(tree, ld, x), rtol=1e-12,
                                atol=1e-12)
 
@@ -222,17 +223,19 @@ def test_shape_limits():
 
 def test_smem_at_walk_imitation():
     """solve_rows' shared memory per block on walk_imitation's tree at its
-    176 rows (the wide instance) stays under the 227 KB a block may use;
-    walk_on_ball's 152 rows keep the narrow instance's 91,072 bytes."""
+    176 rows (the wide instance, with the top chain's 648 L values) and on
+    walk_on_ball's at 152 (the narrow one; no top chain: its 13 trees):
+    both let two blocks share an SM's 228 KB (each block reserves 1 KB)."""
     from flybody_tpu_torch.tasks import walk_on_ball as WOB
-    limit = 232448
-    for parent, R, want in ((_imitation_parent(), 176, 118056),
-                            (WOB.load_model()["dof_parentid"], 152, 91072)):
+    for parent, R, want in ((_imitation_parent(), 176, 114032),
+                            (WOB.load_model()["dof_parentid"], 152, 89136)):
         tree = TL.build_tree_meta(np.asarray(parent, np.int32))
         t = SK.pack_tables(tree)
-        smem = SK.smem_bytes(tree.nv, R, tree.nM, t["n_tab"], t["n_up"])
-        assert smem == want < limit
-    assert (tree.nv, t["n_up"]) == (105, 481)
+        smem = SK.smem_bytes(tree.nv, R, tree.nM, t["n_head"], t["n_up"],
+                             t["n_chain"])
+        assert smem == want
+        assert 2 * (smem + 1024) <= 233472
+    assert (tree.nv, t["n_up"], t["n_chain"]) == (105, 481, 0)
 
 
 def test_smem_at_flight():
@@ -244,8 +247,8 @@ def test_smem_at_flight():
     assert (tree.nv, tree.nM, t["n_up"]) == (42, 421, 379)
     assert SK.tile_cpl(64) == SK.CPL_NARROW == 5
     SK.check_shape("solve_rows", tree.nv, 64)
-    assert SK.smem_bytes(tree.nv, 64, tree.nM, t["n_tab"],
-                         t["n_up"]) == 31984
+    assert SK.smem_bytes(tree.nv, 64, tree.nM, t["n_head"], t["n_up"],
+                         t["n_chain"]) == 31800
 
 
 def test_admm_w_layout():
@@ -266,15 +269,135 @@ def test_admm_w_layout():
 
 def test_profile_cuts_apply():
     """profile_solve_rows' cuts still find their places in the kernel's
-    source: the output sweeps end in a return, the up-sweep loop goes."""
+    source: the output sweeps end in a return; the up-sweep's pull, the
+    top chain's sums and its resolution go, in both instances (one
+    device function), and nothing else of the steps 1-3 path."""
     with open(os.path.join(cuda_build.CSRC, "solve_rows.cu")) as fh:
         src = fh.read()
     no_sweeps = PS.cut(src, PS.CUTS["no_sweeps"])
     assert "    return;\n    // ---- 7." in no_sweeps
     no_up = PS.cut(src, PS.CUTS["no_upsweep"])
-    assert "for (int j = nv - 1" in src and "for (int j = nv - 1" not in no_up
+    for call in ("pull(p, cptr, cidx, S, r", "chain_sums(p, S, r",
+                 "chain_resolve(p, S, r"):
+        assert call in src and call not in no_up
+    for kept in ("build_col(p, S, r, v0, v1", "scale_col(p, S, r, 0, v1)",
+                 "    __syncthreads();\n    if (!upper) return;"):
+        assert kept in no_up
     with pytest.raises(ValueError, match="no cut matches"):
         PS.cut("// another kernel", PS.CUTS["no_sweeps"])
+
+
+def _trees():
+    """The three fly trees: walk_imitation's (a free root: the six-dof top
+    chain above 102 dofs), walk_on_ball's (13 trees, no chain) and
+    flight_imitation's (a free root above 36 dofs)."""
+    from flybody_tpu_torch.tasks import walk_on_ball as WOB
+    return {"imitation": _imitation_parent(),
+            "walk_on_ball": WOB.load_model()["dof_parentid"],
+            "flight": _flight_parent()}
+
+
+@pytest.mark.parametrize("split", ["dsplit", "ysplit", "one"])
+@pytest.mark.parametrize("name,nch", [("imitation", 6), ("walk_on_ball", 0),
+                                      ("flight", 6)])
+def test_chain_tables_drive_the_upsweep(name, nch, split):
+    """The top chain's tables, walked as the kernels walk a column (the
+    pull of the dofs below the chain in parts: solve_rows' two at dsplit,
+    upsolve_yd's four at ysplit, or one; the chain's sums over them from
+    the dense L table; the chain's resolution), give tree_ldl's up-sweep
+    L^{-T} x, float64; each part's pull reads only its own part."""
+    tree = TL.build_tree_meta(np.asarray(_trees()[name], np.int32))
+    nv = tree.nv
+    rng = np.random.RandomState(7)
+    A = rng.randn(nv, nv, 3) * 0.1
+    M = np.eye(nv)[:, :, None] + np.einsum("ikb,jkb->ijb", A, A)
+    ld, _ = TL.factor(tree, torch.as_tensor(M[tree.entry_i, tree.entry_j]))
+    t = SK.pack_tables(tree)
+    m = t["nch"]
+    cuts = {"dsplit": [t["dsplit"]], "ysplit": list(t["ysplit"]),
+            "one": []}[split]
+    bounds = [m] + cuts + [nv]
+    assert m == nch and t["n_chain"] == len(t["chain"])
+    assert len(t["ysplit"]) == SK.YD_PARTS - 1
+    assert all(a <= b for a, b in zip(bounds, bounds[1:])) and m < bounds[1]
+    parent = SK._parents(tree)
+    for d in cuts:
+        assert bool(((parent[d:] < m) | (parent[d:] >= d)).all())
+    ch = t["chain"]
+    lch = torch.where(torch.as_tensor(ch >= 0)[:, None],
+                      ld[np.maximum(ch, 0)], torch.zeros(()))
+    cptr, cidx = t["tab"][:nv + 1], t["tab"][nv + 1:nv + 1 + t["n_up"]]
+    x0 = torch.as_tensor(rng.randn(nv, 3))
+    ref = x0.clone()
+    for ii, ee, jj in tree.on("cpu")["up"]:
+        ref.index_add_(0, jj, -ld[ee] * ref[ii])
+    x = x0.clone()
+    acc = torch.zeros(SK.CHAIN, 3, dtype=torch.float64)
+    for lo, hi in zip(bounds, bounds[1:]):
+        for j in range(hi - 1, lo - 1, -1):          # pull
+            for pk in cidx[cptr[j]:cptr[j + 1]]:
+                i, e, _ = _unpack(pk)
+                assert lo <= i < hi
+                x[j] -= ld[e] * x[i]
+        for i in range(lo, hi):                      # the chain's sums
+            if m:
+                acc += lch[(i - m) * SK.CHAIN:(i - m + 1) * SK.CHAIN] * x[i]
+    lcc = lch[(nv - m) * SK.CHAIN:] if m else None
+    for j in range(m - 1, -1, -1):                   # the chain resolves
+        x[j] -= acc[j]
+        for i in range(j + 1, m):
+            x[j] -= lcc[i * SK.CHAIN + j] * x[i]
+    torch.testing.assert_close(x, ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("B", [1, 7, 129, 4097])
+@pytest.mark.parametrize("R", [152, 176])
+def test_upsolve_yd_tiles_cover_each_pair_once(R, B):
+    """upsolve_yd's grid of env tiles by column tiles, each thread's
+    (env, column) as the kernel computes it: every pair of a ragged B
+    and R is taken by exactly YD_PARTS threads (one per part of the dofs),
+    and the threads left over are exactly those the kernel masks (past B
+    or R)."""
+    gx, gy = SK.upsolve_yd_grid(R, B)
+    bx, by, t = np.meshgrid(np.arange(gx), np.arange(gy),
+                            np.arange(SK.YD_THREADS), indexing="ij")
+    b, r = SK.upsolve_yd_pair(bx, by, t)
+    live = (b < B) & (r < R)
+    seen = np.zeros((R, B), np.int64)
+    np.add.at(seen, (r[live], b[live]), 1)
+    assert (seen == SK.YD_PARTS).all()
+    assert int((~live).sum()) == gx * gy * SK.YD_THREADS - SK.YD_PARTS * R * B
+    assert gx * SK.YD_ENVS - B < SK.YD_ENVS and gy * SK.YD_COLS - R < \
+        SK.YD_COLS
+
+
+def test_upsolve_yd_smem():
+    """upsolve_yd's block at walk_on_ball's tree: the 128 pairs' columns,
+    8 envs' dof vectors, then in their place the L entries, and the table
+    head fit three blocks in an SM's 228 KB (each block reserves 1 KB);
+    walk_imitation's fit two."""
+    for name, want, blocks in (("walk_on_ball", 74860, 3),
+                               ("imitation", 98968, 2)):
+        tree = TL.build_tree_meta(np.asarray(_trees()[name], np.int32))
+        smem = SK.upsolve_yd_smem(tree.nv, SK.pack_tables(tree)["n_up"])
+        assert smem == want
+        assert 233472 // (smem + 1024) == blocks
+
+
+def test_upsolve_dense_factor_gives_yd():
+    """The library yardstick's factor U = L^T D^{1/2} (dense, upper,
+    env-major): one solve_triangular on it gives upsolve_yd's Yd on
+    walk_imitation's tree, float64."""
+    tree, a = _problem("cpu", torch.float64, B=3, nbody=20,
+                       imitation_tree=True, kl=32, kc=48)
+    jt = SK.build_jt_reference(*(a[k] for k in ROW_ARGS[:7]))
+    yd, _ = SK.upsolve_yd_reference(tree, jt, *(a[k] for k in UP_ARGS))
+    U = SK.upsolve_dense_factor(tree, a["ld"], a["dinv"])
+    assert tuple(U.shape) == (3, tree.nv, tree.nv)
+    assert torch.equal(U, torch.triu(U))
+    got = torch.linalg.solve_triangular(U, jt.permute(2, 0, 1), upper=True)
+    torch.testing.assert_close(got.permute(1, 2, 0), yd, rtol=1e-10,
+                               atol=1e-10)
 
 
 # ---- on the card -----------------------------------------------------------
@@ -462,18 +585,47 @@ def test_flight_imitation_on_card():
 
 @pytest.mark.cuda
 def test_kernel_occupancy_on_card():
-    """The narrow instance keeps two blocks per SM at walk_on_ball's
-    shapes; the wide one runs one at walk_imitation's, without spilling
-    its register tile to local memory."""
+    """Both instances run two blocks of 8 warps per SM (16 warps), the
+    narrow one at walk_on_ball's shapes and the wide one at
+    walk_imitation's, neither spilling its register tile to local memory.
+    upsolve_yd runs three 512-thread blocks at walk_on_ball's tree."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
     from flybody_tpu_torch.tasks import walk_on_ball as WOB
-    for parent, R, cpl, blocks in (
-            (WOB.load_model()["dof_parentid"], 152, 5, 2),
-            (_imitation_parent(), 176, 6, 1)):
+    for parent, R, cpl in ((WOB.load_model()["dof_parentid"], 152, 5),
+                           (_imitation_parent(), 176, 6)):
         tree = TL.build_tree_meta(np.asarray(parent, np.int32))
         info = SK.kernel_info("solve_rows", tree.nv, R, tree.nM,
                               SK.pack_tables(tree))
         assert info["cpl"] == cpl
-        assert info["blocks_per_sm"] == blocks
+        assert (info["blocks_per_sm"], info["warps_per_sm"]) == (2, 16)
         assert info["local_bytes"] == 0
+    tree = TL.build_tree_meta(np.asarray(WOB.load_model()["dof_parentid"],
+                                         np.int32))
+    info = SK.kernel_info("upsolve_yd", tree.nv, 152, tree.nM,
+                          SK.pack_tables(tree))
+    assert (info["blocks_per_sm"], info["local_bytes"]) == (3, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,B", [("fly", 1), ("fly", 7), ("fly", 4097),
+                                     ("imitation", 129),
+                                     ("imitation", 4097)])
+def test_upsolve_yd_matches_plain_on_card(shape, B):
+    """upsolve_yd against its plain version (float32) at B that are no
+    multiple of its 8-env tile (and R 152 and 176, no multiple of its
+    16-column tile), each launch counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    sh = RAGGED[shape]
+    tree, a = _problem("cuda", torch.float32, B=B, nbody=20, **sh)
+    jt = SK.build_jt_reference(*(a[k] for k in ROW_ARGS[:7])).contiguous()
+    up = [a[k] for k in UP_ARGS]
+    n0 = SK.upsolve_yd.launches
+    got = SK.upsolve_yd(tree, jt, *up)
+    want = SK.upsolve_yd_reference(tree, jt, *up)
+    torch.cuda.synchronize()
+    assert SK.upsolve_yd.launches == n0 + 1
+    # float32, other summation order: see chip_smoke.py's tolerances
+    for g, w in zip(got, want):
+        assert _max_rel(g, w) < 1e-3
