@@ -23,8 +23,9 @@ Phases (each prints its lines; any failure exits non-zero):
               upsolve_build_yd, upsolve_yd (on J^T of the same rows, held
               against upsolve_build_yd and against its plain version) and
               apgd_iterate (its f held against solve_rows' f) against
-              their plain versions, and solve_fused(_stage="yd" / "apgd")
-              launching them; upsolve_yd's library yardstick, one batched
+              their plain versions, each timed (apgd_iterate also with its
+              loop off), and solve_fused(_stage="yd" / "apgd") launching
+              them; upsolve_yd's library yardstick, one batched
               torch.linalg.solve_triangular on the dense factor L^T D^{1/2}
               (its Yd only, not b), timed on env-major tensors made before
               the clock starts
@@ -61,7 +62,8 @@ Phases (each prints its lines; any failure exits non-zero):
               without the solver loop; solve_rows' wide instance on random
               inputs over walk_imitation's tree at 176 rows; upsolve_yd
               against its plain version on J^T of the final state's rows,
-              timed
+              upsolve_build_yd and apgd_iterate on the final state's rows
+              as in phase 6, each timed
  10. flight   flight_imitation (the winged fly in air, the wing fluid, the
               wing-beat pattern generator; solve_rows at 64 rows over 42
               dofs, the kernel's narrow instance) at B=4096, float32: reset
@@ -72,18 +74,21 @@ Phases (each prints its lines; any failure exits non-zero):
               every env; one substep of 4 envs on the card against the CPU
               as in phase 4; solve_rows against its plain version on the
               final state's inputs as in phase 5, its time with and without
-              the solver loop. Then the template task (the free fly on a
+              the solver loop; upsolve_build_yd and apgd_iterate as in
+              phase 9. Then the template task (the free fly on a
               floor, contact solver "apgd"): 8 envs, one control step,
               finite obs and no hand kernel launched
- 11. registers, shared memory, resident blocks and warps per SM and local
-     (spill) bytes of every kernel (solve_rows in both instances and at
-     flight's shapes), also as each kernel row's "occupancy"; the kernel
-     table as JSON ("launches" on the main path of phase 3 or 6-7,
-     "launches_train" in phase 8, solve_rows' "launches_imitation",
-     "ms_imitation", "plain_ms_imitation" and "bound_ms_imitation" in phase
-     9 and the same "*_flight" keys in phase 10, upsolve_yd's
-     "ms_imitation", "plain_ms_imitation" and "bound_ms_imitation" in phase
-     9), the card line, the result line
+ 11. registers, shared memory, resident blocks and warps per SM, local
+     (spill) bytes and apgd_iterate's active clusters of every kernel
+     (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes),
+     also as each kernel row's "occupancy"; the kernel table as JSON
+     ("launches" on the main path of phase 3 or 6-7, "launches_train" in
+     phase 8, solve_rows' "launches_imitation", "ms_imitation",
+     "plain_ms_imitation" and "bound_ms_imitation" in phase 9 and the same
+     "*_flight" keys in phase 10; upsolve_yd's "*_imitation" keys in phase
+     9; upsolve_build_yd's and apgd_iterate's "*_imitation" and
+     "*_flight" keys, and apgd_iterate's "loop_off_ms*"), the card line,
+     the result line
 """
 
 from __future__ import annotations
@@ -654,20 +659,80 @@ def main() -> int:
                 nbytes(*args.values(), *got))
 
     # ---- 6. the stage split on the fly inputs ----------------------------
+    def hold_stages(label, tree, args, kwa, b1_f):
+        """upsolve_build_yd on ``args`` and apgd_iterate on its Yd against
+        their plain versions as in phase 5, apgd_iterate's f also against
+        solve_rows' ``b1_f`` (bounds raised by the plain apgd_iterate's
+        float32-to-float64 distance); each timed, apgd_iterate also with
+        its solver loop off. Returns upsolve_build_yd's outputs, the plain
+        version's distance from float64 per output, and {kernel: its row's
+        numbers}."""
+        row_a = [args[k] for k in ROW_ARGS]
+        apgd_a = [args[k] for k in APGD_ARGS]
+        got3 = SK.upsolve_build_yd(tree, *row_a)
+        want3 = SK.upsolve_build_yd_reference(tree, *row_a)
+        want3_64 = SK.upsolve_build_yd_reference(
+            tree, *(as64(x) for x in row_a))
+        torch.cuda.synchronize()
+        err3 = hold(f"{label} upsolve_build_yd", ("yd", "b"), got3, want3,
+                    want3_64)
+        rel32_3 = [max_rel(w, w64) for w, w64 in zip(want3, want3_64)]
+        del want3, want3_64
+        yd, bvec = got3
+        got2 = SK.apgd_iterate(yd, bvec, *apgd_a, **kwa)
+        want2 = SK.apgd_iterate_reference(yd, bvec, *apgd_a, **kwa)
+        want2_64 = SK.apgd_iterate_reference(
+            yd.double(), bvec.double(), *(as64(x) for x in apgd_a), **kwa)
+        torch.cuda.synchronize()
+        rel32_2 = [max_rel(w, w64) for w, w64 in zip(want2, want2_64)]
+        err2 = hold(f"{label} apgd_iterate vs solve_rows", ("f",),
+                    got2[:1], (b1_f,), None, rel32=rel32_2[:1])
+        err2 = max(err2, hold(f"{label} apgd_iterate", ("f", "ystar", "v"),
+                              got2, want2, want2_64))
+        del want2, want2_64
+        nv_s, R_s = yd.shape[:2]
+        kw0 = dict(kwa, iterations=0, noslip_iterations=0, power_iters=0)
+        ms3 = cuda_ms(lambda: SK.upsolve_build_yd(tree, *row_a), 20)
+        pms3 = cuda_ms(lambda: SK.upsolve_build_yd_reference(tree, *row_a),
+                       3)
+        ms2 = cuda_ms(lambda: SK.apgd_iterate(yd, bvec, *apgd_a, **kwa), 20)
+        ms2_0 = cuda_ms(lambda: SK.apgd_iterate(yd, bvec, *apgd_a, **kw0),
+                        20)
+        pms2 = cuda_ms(lambda: SK.apgd_iterate_reference(yd, bvec, *apgd_a,
+                                                         **kwa), 3)
+        flops3 = SK.upsolve_yd_work(nv_s, R_s, B, len(TL.flat_up(tree)),
+                                    build=True)
+        flops2 = SK.apgd_iterate_work(nv_s, R_s, B, kwa["iterations"],
+                                      kwa["noslip_iterations"],
+                                      kwa["power_iters"])
+        moved3 = nbytes(*row_a, *got3)
+        moved2 = nbytes(yd, bvec, *apgd_a, *got2)
+        print(f"breakdown: apgd_iterate {label} (nv {nv_s}, R {R_s}) "
+              f"{ms2:.3f} ms; without the solver loop {ms2_0:.3f} ms; the "
+              f"loop {ms2 - ms2_0:.3f} ms | {smi}", flush=True)
+        return got3, rel32_3, {
+            "upsolve_build_yd": (err3, ms3, pms3, flops3, moved3),
+            "apgd_iterate": (err2, ms2, pms2, flops2, moved2, ms2_0)}
+
+    def stage_keys(label, numbers):
+        """The ``*_{label}`` keys of upsolve_build_yd's and apgd_iterate's
+        kernel rows from ``hold_stages``' numbers."""
+        for name, (err, k_ms, p_ms, flops, moved, *off) in numbers.items():
+            b_ms, by = bound(flops, moved)
+            print(f"kernel: {name} {label} B={B} kernel {k_ms:.3f} ms, plain "
+                  f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}: "
+                  f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB) | {smi}",
+                  flush=True)
+            rows[name].update(**{
+                f"max_abs_err_{label}": err, f"ms_{label}": k_ms,
+                f"plain_ms_{label}": p_ms, f"bound_ms_{label}": b_ms,
+                f"bound_by_{label}": by},
+                **({f"loop_off_ms_{label}": off[0]} if off else {}))
+
     tree = m.tree
     row_in = [fly_args[k] for k in ROW_ARGS]
     up_in = [fly_args[k] for k in UP_ARGS]
-    apgd_in = [fly_args[k] for k in APGD_ARGS]
-    apgd64 = [fly64[k] for k in APGD_ARGS]
-
-    # upsolve_build_yd
-    got3 = SK.upsolve_build_yd(tree, *row_in)
-    want3 = SK.upsolve_build_yd_reference(tree, *row_in)
-    want3_64 = SK.upsolve_build_yd_reference(
-        tree, *(fly64[k] for k in ROW_ARGS))
-    torch.cuda.synchronize()
-    err3 = hold("upsolve_build_yd", ("yd", "b"), got3, want3, want3_64)
-    rel32_3 = [max_rel(w, w64) for w, w64 in zip(want3, want3_64)]
+    got3, rel32_3, stage_fly = hold_stages("fly", tree, fly_args, kw, b1_f)
 
     # upsolve_yd: the up-solve of J^T of the same rows, driven alone (its
     # one use is a J^T built beforehand), held against upsolve_build_yd
@@ -698,19 +763,6 @@ def main() -> int:
         lib_u, lib_j, upper=True), 20)
     del lib_yd
 
-    # apgd_iterate on upsolve_build_yd's Yd: f as solve_rows' f
-    yd, bvec = got3
-    got2 = SK.apgd_iterate(yd, bvec, *apgd_in, **kw)
-    want2 = SK.apgd_iterate_reference(yd, bvec, *apgd_in, **kw)
-    want2_64 = SK.apgd_iterate_reference(yd.double(), bvec.double(),
-                                         *apgd64, **kw)
-    torch.cuda.synchronize()
-    rel32_2 = [max_rel(w, w64) for w, w64 in zip(want2, want2_64)]
-    err2 = hold("apgd_iterate vs solve_rows", ("f",), got2[:1], (b1_f,),
-                None, rel32=rel32_2[:1])
-    err2 = max(err2, hold("apgd_iterate", ("f", "ystar", "v"), got2, want2,
-                          want2_64))
-
     # solve_fused's stage split launches them
     stage_launches = {k: 0 for k in wrappers}
     for stage, expect in (("yd", {"upsolve_build_yd": 1}),
@@ -729,41 +781,31 @@ def main() -> int:
         for k, v in launched_s.items():
             stage_launches[k] += v
 
-    yd_bytes = nbytes(*got3)
-    flops3 = SK.upsolve_yd_work(m.nv, R, B, n_up, build=True)
     flops4 = SK.upsolve_yd_work(m.nv, R, B, n_up, build=False)
-    flops2 = SK.apgd_iterate_work(m.nv, R, B, kw["iterations"],
-                                  kw["noslip_iterations"],
-                                  kw["power_iters"])
     # library_ms None for two: no single PyTorch call computes the J build
     # + tree up-solve + rhs, or APGD; upsolve_yd's is the dense triangular
     # solve of its Yd (not b)
+    err3, ms3, pms3, flops3, moved3 = stage_fly["upsolve_build_yd"]
     rows["upsolve_build_yd"] = kernel_row(
         "upsolve_build_yd", "solve_rows.cu",
         "flybody_tpu/ops/solver_kernels.py:218",
-        stage_launches["upsolve_build_yd"], err3,
-        cuda_ms(lambda: SK.upsolve_build_yd(tree, *row_in), 20),
-        cuda_ms(lambda: SK.upsolve_build_yd_reference(tree, *row_in), 3),
-        flops3, nbytes(*row_in) + yd_bytes)
+        stage_launches["upsolve_build_yd"], err3, ms3, pms3, flops3, moved3)
     rows["upsolve_yd"] = kernel_row(
         "upsolve_yd", "solve_rows.cu",
         "flybody_tpu/ops/solver_kernels.py:84", launched4["upsolve_yd"],
         err4, cuda_ms(lambda: SK.upsolve_yd(tree, jt, *up_in), 20),
         cuda_ms(lambda: SK.upsolve_yd_reference(tree, jt, *up_in), 3),
-        flops4, nbytes(jt, *up_in) + yd_bytes, library_ms=lib4_ms)
+        flops4, nbytes(jt, *up_in, *got4), library_ms=lib4_ms)
     print(f"kernel: upsolve_yd {rows['upsolve_yd']['ms']:.3f} ms against "
           f"its library yardstick (Yd only) {lib4_ms:.3f} ms | {smi}",
           flush=True)
+    err2, ms2, pms2, flops2, moved2, ms2_0 = stage_fly["apgd_iterate"]
     rows["apgd_iterate"] = kernel_row(
         "apgd_iterate", "solve_rows.cu",
         "flybody_tpu/ops/solver_kernels.py:410",
-        stage_launches["apgd_iterate"], err2,
-        cuda_ms(lambda: SK.apgd_iterate(yd, bvec, *apgd_in, **kw), 20),
-        cuda_ms(lambda: SK.apgd_iterate_reference(yd, bvec, *apgd_in,
-                                                  **kw), 3),
-        flops2, nbytes(yd, bvec, *apgd_in, *got2))
-    del jt, got3, got4, want3, want3_64, want4, want4_64, yd, bvec, lib_u, \
-        lib_j
+        stage_launches["apgd_iterate"], err2, ms2, pms2, flops2, moved2)
+    rows["apgd_iterate"]["loop_off_ms"] = ms2_0
+    del jt, got3, got4, want4, want4_64, lib_u, lib_j
 
     # ---- 7. the other contact solvers ------------------------------------
     cpu64 = with_solver(cpu[f64], "apgd")
@@ -923,7 +965,8 @@ def main() -> int:
         the card against the CPU models ``cpu_model(dtype)`` as in phase 4,
         then solve_rows at the env's (nv, R, instance) ``shape`` against its
         plain version as in phase 5, timed with and without the solver
-        loop; B1's kernel row gains the ``*_{label}`` keys. Returns R."""
+        loop; B1's kernel row gains the ``*_{label}`` keys. Returns R, the
+        inputs, the solver's keywords and the kernel's f."""
         me = env.model
         substep_check(label, me, "fused", small=first_four(st.data),
                       cpu={dt_: cpu_model(dt_) for dt_ in (f32, f64)})
@@ -961,7 +1004,7 @@ def main() -> int:
             f"max_abs_err_{label}": err_e, f"ms_{label}": k_ms_e,
             f"plain_ms_{label}": p_ms_e, f"bound_ms_{label}": b_ms_e,
             f"bound_by_{label}": by_e})
-        return R_e
+        return R_e, args_e, kw_e, out_e[0]
 
     # ---- 9. walk_imitation -----------------------------------------------
     env_i = walk_imitation()
@@ -985,10 +1028,10 @@ def main() -> int:
     if not (int(pen.sum()) > 0 and int(taken.sum()) > 0):
         fail("imitation: no penetrating floor contact reached the solver")
     # solve_rows at 176 rows, the wide instance
-    R_i = hold_rows("imitation", env_i, state_i, launched_i,
-                    lambda dt_: WI.make_walk_imitation("cpu",
-                                                       dtype=dt_).model,
-                    (108, 176, SK.CPL_WIDE))
+    R_i, args_i, kw_i, b1_fi = hold_rows(
+        "imitation", env_i, state_i, launched_i,
+        lambda dt_: WI.make_walk_imitation("cpu", dtype=dt_).model,
+        (108, 176, SK.CPL_WIDE))
     # the wide instance on random inputs over walk_imitation's tree
     p_w = SK.random_rows_problem(B, seed=0, nbody=mi.nbody, kl=32, kc=48,
                                  parent=np.asarray(mi.dof_parentid))
@@ -1002,7 +1045,6 @@ def main() -> int:
                dict(rnd_kw, kl=32, kc=48))
     del rnd_w, p_w
     # upsolve_yd at 176 rows: J^T of the final state's rows
-    args_i = SF.assemble(mi, F.smooth_forward(mi, state_i.data))["args"]
     row_i = [args_i[k] for k in ROW_ARGS]
     up_i = row_i[7:]
     jt_i = SK.build_jt_reference(*row_i[:7]).contiguous()
@@ -1028,8 +1070,12 @@ def main() -> int:
                               plain_ms_imitation=pms4_i,
                               bound_ms_imitation=b4_i,
                               bound_by_imitation=by4_i)
-    del state_i, con, pen, taken, args_i, row_i, up_i, jt_i, got4_i, \
-        want4_i, want4_i64
+    del state_i, con, pen, taken, row_i, up_i, jt_i, got4_i, want4_i, \
+        want4_i64
+    # upsolve_build_yd and apgd_iterate at 176 rows
+    stage_keys("imitation",
+               hold_stages("imitation", mi.tree, args_i, kw_i, b1_fi)[2])
+    del args_i
 
     # ---- 10. flight_imitation --------------------------------------------
     env_f = flight_imitation()
@@ -1043,11 +1089,15 @@ def main() -> int:
     if not bool((fluid > 0).all()):
         fail(f"flight: no fluid force in {int((fluid == 0).sum())} envs")
     # solve_rows at 64 rows over 42 dofs, the narrow instance
-    R_f = hold_rows("flight", env_f, state_f, launched_f,
-                    lambda dt_: FI.make_flight_imitation("cpu",
-                                                         dtype=dt_).model,
-                    (42, 64, SK.CPL_NARROW))
+    R_f, args_f, kw_f, b1_ff = hold_rows(
+        "flight", env_f, state_f, launched_f,
+        lambda dt_: FI.make_flight_imitation("cpu", dtype=dt_).model,
+        (42, 64, SK.CPL_NARROW))
     del state_f
+    # upsolve_build_yd and apgd_iterate at 64 rows over 42 dofs
+    stage_keys("flight",
+               hold_stages("flight", mf.tree, args_f, kw_f, b1_ff)[2])
+    del args_f
 
     # the template task: the APGD solver, no hand kernel
     env_t = template_task()
@@ -1074,36 +1124,35 @@ def main() -> int:
           flush=True)
 
     # ---- 11. result ------------------------------------------------------
-    nM = fly_args["ld"].shape[0]
-    tabs = SK.pack_tables(m.tree)
-    occupancy = (
-        ("solve_rows", "", SK.kernel_info("solve_rows", m.nv, R, nM, tabs)),
-        ("solve_rows", "_imitation",
-         SK.kernel_info("solve_rows", mi.nv, R_i, mi.tree.nM,
-                        SK.pack_tables(mi.tree))),
-        ("solve_rows", "_flight",
-         SK.kernel_info("solve_rows", mf.nv, R_f, mf.tree.nM,
-                        SK.pack_tables(mf.tree))),
-        ("upsolve_build_yd", "",
-         SK.kernel_info("upsolve_build_yd", m.nv, R, nM, tabs)),
-        ("upsolve_yd", "", SK.kernel_info("upsolve_yd", m.nv, R, nM, tabs)),
-        ("apgd_iterate", "",
-         SK.kernel_info("apgd_iterate", m.nv, R, nM, tabs)),
-        ("admm_iterate", "", AK.kernel_info(n_rows)))
+    shapes = {"": (m.nv, R, m.tree), "_imitation": (mi.nv, R_i, mi.tree),
+              "_flight": (mf.nv, R_f, mf.tree)}
+    occupancy = [(name, at, SK.kernel_info(name, nv_, R_, tr.nM,
+                                           SK.pack_tables(tr)))
+                 for name in ("solve_rows", "upsolve_build_yd",
+                              "apgd_iterate")
+                 for at, (nv_, R_, tr) in shapes.items()]
+    occupancy += [("upsolve_yd", "", SK.kernel_info(
+        "upsolve_yd", m.nv, R, m.tree.nM, SK.pack_tables(m.tree))),
+                  ("admm_iterate", "", AK.kernel_info(n_rows))]
     for name, at, info in occupancy:
         cpl = (f" ({info['cpl']} columns per lane)" if "cpl" in info
                else "")
+        clusters = (f", {info['clusters']} clusters of "
+                    f"{SK.APGD_CLUSTER} active" if info.get("clusters")
+                    else "")
         print(f"occupancy: {name}{' at ' + at[1:] if at else ''}{cpl}: "
               f"{info['regs']} registers per thread, {info['local_bytes']} B "
               f"local (spill) per thread, shared memory "
               f"{info['static_smem']} B static + {info['dynamic_smem']} B "
               f"dynamic per block, {info['blocks_per_sm']} blocks and "
-              f"{info['warps_per_sm']} warps per SM", flush=True)
+              f"{info['warps_per_sm']} warps per SM{clusters}", flush=True)
         rows[name][f"occupancy{at}"] = {
             "regs": info["regs"], "spill_bytes": info["local_bytes"],
             "smem_bytes": info["static_smem"] + info["dynamic_smem"],
             "blocks_per_sm": info["blocks_per_sm"],
-            "warps_per_sm": info["warps_per_sm"]}
+            "warps_per_sm": info["warps_per_sm"],
+            **({"clusters": info["clusters"]} if info.get("clusters")
+               else {})}
     order = ("solve_rows", "apgd_iterate", "upsolve_build_yd", "upsolve_yd",
              "admm_iterate")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)

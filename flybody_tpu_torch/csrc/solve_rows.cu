@@ -1,7 +1,8 @@
 // The fused dual contact solve and its stage kernels.
 //
 // Replaces four Pallas kernels of flybody_tpu/ops/solver_kernels.py, all
-// on the same row form and the same device code below:
+// on the same row form (apgd_iterate runs solve_rows' loop, and
+// upsolve_build_yd and upsolve_yd one env-tiled kernel):
 //   solve_rows        (_solve_rows_kernel)    steps 1-7
 //   upsolve_build_yd  (_upsolve_build_kernel) steps 1-3, writes (Yd, b)
 //   upsolve_yd        (_upsolve_kernel)       steps 2-3 on a given J^T
@@ -37,28 +38,32 @@
 // up and 1105 down triplets) solve_rows is 3.05 MFLOP per env, 12.5
 // GFLOP at B=4096, a 0.187 ms bound, again by arithmetic.
 //
-// Design of solve_rows, upsolve_build_yd and apgd_iterate: one thread
-// block of 256 threads (8 warps) per env, two blocks per SM (registers and
-// shared memory allow two in either instance, below). Inputs arrive
-// batch-minor (env axis last), so one env's values sit B apart and are
-// read strided, one 32-byte sector per word; the wrappers make no
-// env-major copies. Every staged word is copied with cp.async, so a
-// thread's copies are all in flight at once, and every row input is
+// Design of solve_rows and apgd_iterate: one thread block of 256 threads
+// (8 warps) per env, two blocks per SM (registers and shared memory allow
+// two in either instance, below). solve_rows' inputs arrive batch-minor
+// (env axis last), so one env's values sit B apart and are read strided,
+// one 32-byte sector per word; every staged word is copied with cp.async,
+// so a thread's copies are all in flight at once, and every row input is
 // loaded before the env is staged, so its latency overlaps the staging.
-//  - Two instances of every kernel, by the register tile's width: CPL 5
+// apgd_iterate reads Yd (nv R words an env) in whole sectors instead: a
+// cluster of 8 blocks on 8 consecutive envs loads it together, lanes
+// along the env axis, and each block stores what it read into the
+// owning env's block through distributed shared memory (apgd_kernel).
+//  - Two instances of each kernel, by the register tile's width: CPL 5
 //    (R <= 160: walk_on_ball's 152 rows, flight_imitation's 64) holds
 //    column groups 0-4 of Yd in registers (70 floats a thread); CPL 6
 //    (R <= 192: walk_imitation's 176) holds groups 0-3 (56 floats) and
-//    reads groups 4-5 from the copy of Yd that steps 1-3 leave in shared
-//    memory, packed as pairs (one 8-byte load a dof per product). So both
-//    fit 128 registers without spilling and run two blocks, 16 warps, per
-//    SM: 84 register floats a thread took ~159 registers and left one
-//    block of 8 warps per SM, and 16 warps of 42 in one block paid twice
-//    the per-warp shared-memory traffic and shuffles in the loop. The
-//    launchers pick the narrower instance that takes R.
-//  - Steps 1-3, column per thread: thread r builds column r of J^T in
-//    shared memory (odd row stride R | 1, conflict-free) with the rhs dots
-//    in the same pass, then runs the up-sweep down its column. The body
+//    reads groups 4-5 from the copy of Yd left in shared memory, packed as
+//    pairs (one 8-byte load a dof per product). So both fit 128 registers
+//    without spilling and run two blocks, 16 warps, per SM: 84 register
+//    floats a thread took ~159 registers and left one block of 8 warps per
+//    SM, and 16 warps of 42 in one block paid twice the per-warp
+//    shared-memory traffic and shuffles in the loop. The launchers pick
+//    the narrower instance that takes R.
+//  - Steps 1-3 of solve_rows, column per thread: thread r builds column
+//    r of J^T in shared memory (odd row stride R | 1, conflict-free) with
+//    the rhs dots in the same pass, then runs the up-sweep down its
+//    column. The body
 //    masks arrive as bits (4 words per body, one 16-byte load per row end,
 //    no per-element gather); the triplet tables, packed i | j << 7 | e << 14
 //    into one word, are staged in shared memory once. The up-sweep pulls:
@@ -101,18 +106,26 @@
 // per column. The sums are taken in another order than the plain
 // version's.
 //
-// Design of upsolve_yd (its own kernel): it reads J^T and writes Yd, both
-// (nv, R, B), so it is bound by bytes (547.7 MB at walk_on_ball's shapes,
-// 0.164 ms). A block takes 8 consecutive envs by 16 columns, lane e of a
-// group of 8 on env e, so every global load and store of a warp fills
-// whole 32-byte sectors; the tree tables and each env's L entries are
-// staged once per block (cp.async). Four threads take each (env, column)
-// pair, one part of the dofs each (subtrees, pack_tables' ysplit), and
-// pull the up-sweep down the pair's column in shared memory (pair-minor,
+// Design of upsolve_build_yd and upsolve_yd (one kernel, upsolve_yd_kernel,
+// templated on the J build): they write Yd (nv, R, B), and upsolve_yd
+// reads J^T of the same size, so both are bound by bytes (upsolve_yd
+// 547.7 MB at walk_on_ball's shapes, 0.164 ms; upsolve_build_yd ~320 MB
+// and a J build of ~1 GFLOP). A block takes 8 consecutive envs by 16
+// columns, lane e of a group of 8 on env e, so every global load and
+// store of a warp fills whole 32-byte sectors; the tree tables, each
+// env's dof vectors (and d6, where the kernel builds J^T) and L entries
+// are staged once per block (cp.async). Four threads take each (env,
+// column) pair, one part of the dofs each (subtrees, pack_tables'
+// ysplit); with the build, each builds its part of the pair's column from
+// the row's inputs (8 lanes to a sector) and the bit mask; then they pull
+// the up-sweep down the pair's column in shared memory (pair-minor,
 // conflict-free): the longest part is 165 of walk_on_ball's 481 entries.
 // The last env tile and column tile are masked, never padded.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -195,9 +208,9 @@ struct Chain {
     int m, d, n;
 };
 
-// The block's dynamic shared memory, the same carve-up for every kernel
-// here, with the instance's sizes (ops/solver_kernels.smem_bytes mirrors
-// it).
+// The block's dynamic shared memory of solve_rows and apgd_iterate (the
+// same carve-up), with the instance's sizes (ops/solver_kernels.smem_bytes
+// mirrors it).
 struct Smem {
     // dq: per dof d6 (6 words), qvel, qacc_smooth; qs: step 7's scratch
     float *ys, *gpart, *red, *dq, *lch, *Yd, *ld, *qs, *sqd, *sqm,
@@ -1000,43 +1013,28 @@ solve_rows_kernel(
     }
 }
 
-// Steps 1-3; writes yd (nv, R, B) and b (R, B).
-template <int CPL>
-__global__ void __launch_bounds__(NT) upsolve_kernel(
-    const float* __restrict__ d6, const float* __restrict__ u6,
-    const int* __restrict__ b1, const int* __restrict__ b2,
-    const float* __restrict__ lim_sign, const int* __restrict__ lim_dadr,
-    const uint4* __restrict__ mbits, const float* __restrict__ ld,
-    const float* __restrict__ dinv, const float* __restrict__ qacc_smooth,
-    const float* __restrict__ qvel, const float* __restrict__ kcoef,
-    const float* __restrict__ bcoef, const float* __restrict__ posr,
-    float* __restrict__ yd_out, float* __restrict__ b_out,
-    const int* __restrict__ tab, const int* __restrict__ chn, int nv, int R,
-    int B, int nM, int n_up, int nch, int dsplit, int n_chain) {
-    extern __shared__ __align__(16) float sm[];
-    const int b = blockIdx.x;
-    const int r = threadIdx.x;
-    const int S = R | 1;
-    const Chain ch{chn, nch, dsplit, n_chain};
-    const ColRole role(R, nv, ch);
-    const RowVals rv = row_vals(role, u6, b1, b2, lim_sign, lim_dadr, kcoef,
-                                bcoef, posr, B, b);
-    // the head of the tables: cptr | cidx
-    const Smem p = carve<CPL>(sm, nv, S, nM, nv + 1 + n_up, n_up, n_chain);
-    stage_env(p, ld, d6, qvel, qacc_smooth, dinv, tab, nv + 1 + n_up, ch, nv,
-              nM, n_up, B, b);
-    float diag, bvec;
-    build_upsolve(p, p.tab, Rows{R, 0, 0, S}, ch, role, rv, mbits, nv, &diag,
-                  &bvec);
-    if (r >= R) return;
-    b_out[r * B + b] = bvec;
-    for (int v = 0; v < nv; ++v) yd_out[(v * R + r) * B + b] = p.Yd[v * S + r];
-}
+// apgd_iterate's cluster: AC blocks on AC consecutive envs. A warp moves
+// Yd in runs of 32 words of all AC envs, AB runs a step.
+constexpr int AC = 8;
+constexpr int AB = 2;
 
 // Steps 4-6 on a given Yd (nv, R, B); writes f, v (R, B) and
-// ystar = Yd f (nv, B).
+// ystar = Yd f (nv, B). A cluster of AC blocks takes AC consecutive envs,
+// block q of cluster x env AC x + q (the grid is padded to whole
+// clusters; a block past B loads its share for the others and computes
+// nothing). The cluster loads its envs' Yd together, in whole sectors:
+// warp w of block q takes runs n = ((i AC + q) NWARP + w) AB + a, words
+// [32 n, 32 n + 32) of all AC envs, in 8 loads of 4 words by 8 envs (lane
+// l: word 32 n + 4 j + l / 8 of env l % 8, so 8 lanes read one sector).
+// Shuffles then give lane l word 32 n + l of each env in turn, and the
+// warp stores the run into that env's block through distributed shared
+// memory, one destination a store (ops/solver_kernels.apgd_load and
+// apgd_store mirror the maps). One cluster barrier before the stores
+// (every block has started), one after (every store is in; none
+// follows, so any block may exit). The row inputs are loaded first, so
+// that their latency overlaps Yd's.
 template <int CPL>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __cluster_dims__(AC, 1, 1) __launch_bounds__(NT, 2)
 apgd_kernel(
     const float* __restrict__ yd_in, const float* __restrict__ bvec_in,
     const float* __restrict__ rreg, const float* __restrict__ active,
@@ -1046,26 +1044,63 @@ apgd_kernel(
     int R, int B, int kl, int kc, int iterations, int noslip,
     int power_iters) {
     extern __shared__ __align__(16) float sm[];
+    cg::cluster_group cluster = cg::this_cluster();
     const int b = blockIdx.x;
-    const int r = threadIdx.x;
+    const int r = threadIdx.x, lane = r & 31, w = r >> 5;
+    const int q = (int)cluster.block_rank();
     const Rows rw{R, kl, kc, R | 1};
-    const float m = r >= kl && r < kl + kc ? mu[(r - kl) * B + b] : 0.0f;
     const Smem p = carve<CPL>(sm, nv, rw.S, 0, 0, 0, 0);
-    for (int k = r; k < nv * R; k += NT) {   // neighbours read neighbours
-        const int v = k / R, c = k - v * R;
-        p.Yd[v * rw.S + c] = yd_in[k * B + b];
+    const bool row = b < B && r < R;
+    const size_t rb = (size_t)r * B + b;
+    const float bv = row ? bvec_in[rb] : 0.0f;
+    const float rr = row ? rreg[rb] : 0.0f;
+    const float act = row ? active[rb] : 0.0f;
+    const float v0r = row ? v0[rb] : 0.0f;
+    const float f0r = row ? f0[rb] : 0.0f;
+    const float m = row && r >= kl && r < kl + kc
+                        ? mu[(size_t)(r - kl) * B + b] : 0.0f;
+    const int b0 = b - q, nw = nv * R;
+    const bool lane_env = b0 + (lane & 7) < B;
+    const float* src = yd_in + b0 + (lane & 7);
+    cluster.sync();
+    for (int n0 = (q * NWARP + w) * AB; 32 * n0 < nw;
+         n0 += AC * NWARP * AB) {
+        float y[AB][8];
+#pragma unroll
+        for (int a = 0; a < AB; ++a)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int k = 32 * (n0 + a) + 4 * j + (lane >> 3);
+                y[a][j] = lane_env && k < nw ? __ldg(src + (size_t)k * B)
+                                             : 0.0f;
+            }
+#pragma unroll
+        for (int e = 0; e < AC; ++e) {
+            if (b0 + e >= B) break;
+            float* dst = cluster.map_shared_rank(p.Yd, e);
+#pragma unroll
+            for (int a = 0; a < AB; ++a) {
+                float val = 0.0f;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const float t = __shfl_sync(FULL, y[a][j],
+                                                ((lane & 3) << 3) | e);
+                    if (j == lane >> 2) val = t;
+                }
+                const int k = 32 * (n0 + a) + lane, v = k / R;
+                if (k < nw) dst[v * rw.S + k - v * R] = val;
+            }
+        }
     }
-    __syncthreads();
-    const bool row = r < R;
+    cluster.sync();
+    if (b >= B) return;
     float diag = 0.0f;
     if (row)
         for (int v = 0; v < nv; ++v) {
             const float y = p.Yd[v * rw.S + r];
             diag += y * y;
         }
-    row_inputs(p, row, r, diag, row ? bvec_in[r * B + b] : 0.0f,
-               row ? rreg[r * B + b] : 0.0f, row ? active[r * B + b] : 0.0f,
-               row ? v0[r * B + b] : 0.0f, row ? f0[r * B + b] : 0.0f, m);
+    row_inputs(p, row, r, diag, bv, rr, act, v0r, f0r, m);
     __syncthreads();
     float yd[DPW][creg<CPL>()];
     load_tiles<CPL>(p, yd, nv, R, rw.S);
@@ -1100,35 +1135,88 @@ __device__ __forceinline__ void pull_pair(float* x, const float* ldv,
     }
 }
 
-// Steps 2-3 on a given J^T (nv, R, B): yd (nv, R, B) and b (R, B). Block
-// (x, y) takes envs YE x .. YE x + YE - 1 and columns YC y .. YC y +
-// YC - 1, masked past B and R. Shared memory (ops/solver_kernels.
-// upsolve_yd_smem mirrors it): the pairs' columns x[v YP + p]; a region
-// that holds qvel and qacc_smooth (qv[v YE + e], qa[...]) for the rhs, then
-// the up-sweep's L entries ldv[q YE + e]; sqrt(dinv) sd[v YE + e]; then
-// cptr | cidx. Two rounds of copies (cp.async): the columns, vectors and
-// tables, then the L entries the tables name. The parts of a column pull
-// at once (no dof of a part has an ancestor in an earlier part below the
-// chain); the top chain's m dofs, whose descendants span them, pull after
-// a barrier.
-__global__ void __launch_bounds__(YT) upsolve_yd_kernel(
-    const float* __restrict__ jt, const float* __restrict__ ld,
-    const float* __restrict__ dinv, const float* __restrict__ qacc_smooth,
-    const float* __restrict__ qvel, const float* __restrict__ kcoef,
-    const float* __restrict__ bcoef, const float* __restrict__ posr,
-    float* __restrict__ yd_out, float* __restrict__ b_out,
-    const int* __restrict__ tab, int nv, int R, int B, int n_up, int m,
-    int d1, int d2, int d3) {
+// Step 1 on a pair's dofs [v0, v1): J^T's column into x[v YP], from the
+// row's inputs and the env's staged records rec[v YE 8] (d6, qvel,
+// qacc_smooth), with the rhs dots J qvel and J qacc_smooth over them.
+__device__ __forceinline__ void build_pair(float* x, const float* rec,
+                                           const RowVals& in, uint4 m1,
+                                           uint4 m2, int v0, int v1,
+                                           float* velj, float* aj) {
+    const float* u = in.u;
+    const unsigned w1[4] = {m1.x, m1.y, m1.z, m1.w};
+    const unsigned w2[4] = {m2.x, m2.y, m2.z, m2.w};
+    float vj = 0.0f, a = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int lo = max(v0, 32 * q), hi = min(v1, 32 * q + 32);
+        for (int v = lo; v < hi; ++v) {
+            const int o = v - 32 * q;
+            const float4* dv = reinterpret_cast<const float4*>(
+                rec + v * YE * 8);
+            const float4 d03 = dv[0], d4q = dv[1];
+            float dots = d03.x * u[0];
+            dots += d03.y * u[1];
+            dots += d03.z * u[2];
+            dots += d03.w * u[3];
+            dots += d4q.x * u[4];
+            dots += d4q.y * u[5];
+            const float md = (float)((w2[q] >> o) & 1u)
+                             - (float)((w1[q] >> o) & 1u);
+            float xv = dots * md;
+            if (v == in.la) xv += in.ls;
+            x[v * YP] = xv;
+            vj = fmaf(xv, d4q.z, vj);
+            a = fmaf(xv, d4q.w, a);
+        }
+    }
+    *velj = vj;
+    *aj = a;
+}
+
+// upsolve_build_yd (BUILD) and upsolve_yd: yd (nv, R, B) and b (R, B),
+// from J^T built out of the row form (BUILD) or from a given J^T
+// (nv, R, B). Block (x, y) takes envs YE x .. YE x + YE - 1 and columns
+// YC y .. YC y + YC - 1, masked past B and R. Shared memory
+// (ops/solver_kernels.upsolve_yd_smem mirrors it): the pairs' columns
+// x[v YP + p]; a region that holds each env's dof records
+// rec[(v YE + e) W + k] (W words a record) and the rhs sums of the pairs'
+// other parts, then the up-sweep's L entries ldv[q YE + e]; sqrt(dinv)
+// sd[v YE + e]; then cptr | cidx. Two rounds of copies (cp.async): the
+// columns (with BUILD: d6 of the tile's envs instead, 8 lanes to a
+// sector), vectors and tables, then the L entries the tables name. With
+// BUILD the row's inputs are loaded first, so that their latency overlaps
+// the staging, and each thread builds its own dofs of its pair's column,
+// the rhs dots in the same pass. The parts of a column pull at once (no
+// dof of a part has an ancestor in an earlier part below the chain); the
+// top chain's m dofs, whose descendants span them, pull after a barrier.
+// Registers: 32 without the build (4 blocks per SM where shared memory
+// allows, 3 at walk_on_ball's tree), 64 with it (2 blocks).
+template <bool BUILD>
+__global__ void __launch_bounds__(YT, BUILD ? 2 : 4) upsolve_yd_kernel(
+    const float* __restrict__ jt, const float* __restrict__ d6,
+    const float* __restrict__ u6, const int* __restrict__ b1,
+    const int* __restrict__ b2, const float* __restrict__ lim_sign,
+    const int* __restrict__ lim_dadr, const uint4* __restrict__ mbits,
+    const float* __restrict__ ld, const float* __restrict__ dinv,
+    const float* __restrict__ qacc_smooth, const float* __restrict__ qvel,
+    const float* __restrict__ kcoef, const float* __restrict__ bcoef,
+    const float* __restrict__ posr, float* __restrict__ yd_out,
+    float* __restrict__ b_out, const int* __restrict__ tab, int nv, int R,
+    int B, int n_up, int m, int d1, int d2, int d3) {
+    // words of a staged dof record (v, e): d6 (6 words, where the kernel
+    // builds J^T), then qvel and qacc_smooth
+    constexpr int W = BUILD ? 8 : 2;
     extern __shared__ __align__(16) float sm[];
     const int t = threadIdx.x, h = t / YP, pr = t % YP;
     const int e = pr % YE, c = pr / YE;
-    const int b = blockIdx.x * YE + e, r = blockIdx.y * YC + c;
+    const int b0 = blockIdx.x * YE;
+    const int b = b0 + e, r = blockIdx.y * YC + c;
     const bool env = b < B, pair = env && r < R;
     float* x = sm;
     float* ldv = x + nv * YP;
-    float* qv = ldv;
-    float* qa = qv + nv * YE;
-    float* sd = ldv + max(n_up, 2 * nv + 2 * (YQ - 1) * YC) * YE;
+    float* rec = ldv;
+    float* part = rec + W * nv * YE;   // 2 (YQ - 1) YP floats
+    float* sd = ldv + max(n_up, W * nv + 2 * (YQ - 1) * YC) * YE;
     int* ct = reinterpret_cast<int*>(sd + nv * YE);
     const int* cptr = ct;
     const int* cidx = ct + nv + 1;
@@ -1137,32 +1225,58 @@ __global__ void __launch_bounds__(YT) upsolve_yd_kernel(
     const int v0 = h == 0 ? 0 : h == 1 ? d1 : h == 2 ? d2 : d3;
     const int v1 = h == 0 ? d1 : h == 1 ? d2 : h == 2 ? d3 : nv;
 
+    RowVals in{};
+    uint4 m1{}, m2{};
+    if (BUILD && pair) {
+        const size_t rb = (size_t)r * B + b;
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+            in.u[k] = u6[((size_t)r * 6 + k) * B + b];
+        in.ls = lim_sign[rb];
+        in.la = lim_dadr[rb];
+        m1 = __ldg(mbits + b1[rb]);
+        m2 = __ldg(mbits + b2[rb]);
+    }
     for (int k = t; k < nv + 1 + n_up; k += YT) cp_word(ct + k, tab + k);
+    if (BUILD)   // d6[v, k] of env ek: word vk = 6 v + k, 8 lanes a sector
+        for (int k = t; k < nv * 6 * YE; k += YT) {
+            const int ek = k % YE, vk = k / YE;
+            if (b0 + ek < B)
+                cp_word(rec + ((vk / 6) * YE + ek) * W + vk % 6,
+                        d6 + (size_t)vk * B + b0 + ek);
+        }
     if (env && h == 0)
         for (int v = c; v < nv; v += YC) {
-            cp_word(qv + v * YE + e, qvel + v * B + b);
-            cp_word(qa + v * YE + e, qacc_smooth + v * B + b);
+            float* rv = rec + (v * YE + e) * W + W - 2;
+            cp_word(rv, qvel + v * B + b);
+            cp_word(rv + 1, qacc_smooth + v * B + b);
             cp_word(sd + v * YE + e, dinv + v * B + b);
         }
-    if (pair) {
+    if (!BUILD && pair) {
         const float* src = jt + (size_t)r * B + b;
         for (int v = v0; v < v1; ++v) cp_word(x + v * YP + pr, src + v * RB);
     }
     cp_wait();
     __syncthreads();
-    // the rhs dots, each thread over its dofs; the other parts' sums pass
-    // through the L entries' place, two slots a pair and part past qa
+    // the rhs dots, each thread over its dofs (with BUILD in the build's
+    // pass); the other parts' sums pass through part
     float vj = 0.0f, a = 0.0f;
-    if (pair)
-        for (int v = v0; v < v1; ++v) {
-            const float xv = x[v * YP + pr];
-            vj = fmaf(xv, qv[v * YE + e], vj);
-            a = fmaf(xv, qa[v * YE + e], a);
+    if (pair) {
+        if constexpr (BUILD) {
+            build_pair(x + pr, rec + e * W, in, m1, m2, v0, v1, &vj, &a);
+        } else {
+            for (int v = v0; v < v1; ++v) {
+                const float xv = x[v * YP + pr];
+                const float2 q2 = *reinterpret_cast<const float2*>(
+                    rec + (v * YE + e) * W);
+                vj = fmaf(xv, q2.x, vj);
+                a = fmaf(xv, q2.y, a);
+            }
         }
+    }
     if (env && h == 0)
         for (int v = c; v < nv; v += YC)
             sd[v * YE + e] = sqrtf(sd[v * YE + e]);
-    float* part = qa + nv * YE;   // 2 (YQ - 1) YP floats
     if (h > 0) {
         part[(2 * h - 2) * YP + pr] = vj;
         part[(2 * h - 1) * YP + pr] = a;
@@ -1174,7 +1288,7 @@ __global__ void __launch_bounds__(YT) upsolve_yd_kernel(
             vj += part[(2 * g - 2) * YP + pr];
             a += part[(2 * g - 1) * YP + pr];
         }
-    __syncthreads();   // qv, qa and the sums give way to the L entries
+    __syncthreads();   // the records and the sums give way to the L entries
     if (env)
         for (int q = c + YC * h; q < n_up; q += YQ * YC)
             cp_word(ldv + q * YE + e, ld + (size_t)trip_e(cidx[q]) * B + b);
@@ -1216,6 +1330,32 @@ cudaError_t set_smem(K kernel, int smem_bytes) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
+// upsolve_build_yd and upsolve_yd: one kernel, a grid of ceil(B / YE)
+// env tiles by ceil(R / YC) column tiles. tab: the packed tables (their
+// cptr | cidx head is read); d1-d3: pack_tables' ysplit.
+template <bool BUILD>
+int tile_launch(const float* jt, const float* d6, const float* u6,
+                const int* b1, const int* b2, const float* lim_sign,
+                const int* lim_dadr, const void* mbits, const float* ld,
+                const float* dinv, const float* qacc_smooth,
+                const float* qvel, const float* kcoef, const float* bcoef,
+                const float* posr, float* yd_out, float* b_out,
+                const int* tab, int nv, int R, int B, int n_up, int nch,
+                int d1, int d2, int d3, int smem_bytes, void* stream) {
+    if (!shape_ok(nv, R, B)
+        || !(nch < d1 && d1 <= d2 && d2 <= d3 && d3 <= nv))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = set_smem(upsolve_yd_kernel<BUILD>, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((B + YE - 1) / YE, (R + YC - 1) / YC);
+    upsolve_yd_kernel<BUILD><<<grid, YT, smem_bytes,
+                               (cudaStream_t)stream>>>(
+        jt, d6, u6, b1, b2, lim_sign, lim_dadr,
+        static_cast<const uint4*>(mbits), ld, dinv, qacc_smooth, qvel, kcoef,
+        bcoef, posr, yd_out, b_out, tab, nv, R, B, n_up, nch, d1, d2, d3);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int solve_rows_launch(
@@ -1244,46 +1384,34 @@ extern "C" int solve_rows_launch(
     return (int)cudaGetLastError();
 }
 
-// upsolve_build_yd. tab: the packed tables; chn: the top chain's.
 extern "C" int upsolve_launch(
     const float* d6, const float* u6, const int* b1, const int* b2,
     const float* lim_sign, const int* lim_dadr, const void* mbits,
     const float* ld, const float* dinv, const float* qacc_smooth,
     const float* qvel, const float* kcoef, const float* bcoef,
-    const float* posr, float* yd_out, float* b_out, const int* tab,
-    const int* chn, int nv, int R, int B, int nM, int n_up, int nch,
-    int dsplit, int n_chain, int smem_bytes, void* stream) {
-    if (!shape_ok(nv, R, B) || nch > CH) return (int)cudaErrorInvalidValue;
-    auto kernel = narrow(R) ? upsolve_kernel<CPL_NARROW>
-                            : upsolve_kernel<CPL_WIDE>;
-    cudaError_t e = set_smem(kernel, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<B, NT, smem_bytes, (cudaStream_t)stream>>>(
-        d6, u6, b1, b2, lim_sign, lim_dadr, static_cast<const uint4*>(mbits),
-        ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr, yd_out, b_out, tab,
-        chn, nv, R, B, nM, n_up, nch, dsplit, n_chain);
-    return (int)cudaGetLastError();
+    const float* posr, float* yd_out, float* b_out, const int* tab, int nv,
+    int R, int B, int n_up, int nch, int d1, int d2, int d3, int smem_bytes,
+    void* stream) {
+    return tile_launch<true>(nullptr, d6, u6, b1, b2, lim_sign, lim_dadr,
+                             mbits, ld, dinv, qacc_smooth, qvel, kcoef, bcoef,
+                             posr, yd_out, b_out, tab, nv, R, B, n_up, nch,
+                             d1, d2, d3, smem_bytes, stream);
 }
 
-// upsolve_yd: a grid of ceil(B / YE) env tiles by ceil(R / YC) column
-// tiles. tab: the packed tables (their cptr | cidx head is read).
 extern "C" int upsolve_yd_launch(
     const float* jt, const float* ld, const float* dinv,
     const float* qacc_smooth, const float* qvel, const float* kcoef,
     const float* bcoef, const float* posr, float* yd_out, float* b_out,
     const int* tab, int nv, int R, int B, int n_up, int nch, int d1, int d2,
     int d3, int smem_bytes, void* stream) {
-    if (!shape_ok(nv, R, B) || !(nch < d1 && d1 <= d2 && d2 <= d3 && d3 <= nv))
-        return (int)cudaErrorInvalidValue;
-    cudaError_t e = set_smem(upsolve_yd_kernel, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((B + YE - 1) / YE, (R + YC - 1) / YC);
-    upsolve_yd_kernel<<<grid, YT, smem_bytes, (cudaStream_t)stream>>>(
-        jt, ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr, yd_out, b_out,
-        tab, nv, R, B, n_up, nch, d1, d2, d3);
-    return (int)cudaGetLastError();
+    return tile_launch<false>(jt, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, ld, dinv,
+                              qacc_smooth, qvel, kcoef, bcoef, posr, yd_out,
+                              b_out, tab, nv, R, B, n_up, nch, d1, d2, d3,
+                              smem_bytes, stream);
 }
 
+// apgd_iterate: ceil(B / AC) clusters of AC blocks.
 extern "C" int apgd_launch(
     const float* yd, const float* b, const float* rreg, const float* active,
     const float* mu, const float* f0, const float* v0, float* f_out,
@@ -1296,43 +1424,52 @@ extern "C" int apgd_launch(
                             : apgd_kernel<CPL_WIDE>;
     cudaError_t e = set_smem(kernel, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    kernel<<<B, NT, smem_bytes, (cudaStream_t)stream>>>(
+    kernel<<<(B + AC - 1) / AC * AC, NT, smem_bytes, (cudaStream_t)stream>>>(
         yd, b, rreg, active, mu, f0, v0, f_out, ystar_out, v_out, nv, R, B,
         kl, kc, iterations, noslip, power_iters);
     return (int)cudaGetLastError();
 }
 
 // Registers per thread, static and dynamic shared memory per block,
-// resident blocks per SM and local (spill) memory per thread of kernel
-// `which` (0 solve_rows, 1 upsolve_build_yd, 2 apgd_iterate in the narrow
-// instance, 3-5 the same in the wide one, 6 upsolve_yd) at `threads`
-// threads and `smem_bytes` of dynamic shared memory.
+// resident blocks per SM, local (spill) memory per thread and, for a
+// kernel launched in clusters, the clusters the device holds at once
+// (else 0) of kernel `which` (0 solve_rows, 1 apgd_iterate in the narrow
+// instance, 2-3 the same in the wide one, 4 upsolve_yd, 5
+// upsolve_build_yd) at `threads` threads and `smem_bytes` of dynamic
+// shared memory.
 extern "C" int fb_kernel_info(int which, int threads, int smem_bytes,
                               int* out) {
-    const void* kernels[7] = {
+    const void* kernels[6] = {
         (const void*)solve_rows_kernel<CPL_NARROW>,
-        (const void*)upsolve_kernel<CPL_NARROW>,
         (const void*)apgd_kernel<CPL_NARROW>,
         (const void*)solve_rows_kernel<CPL_WIDE>,
-        (const void*)upsolve_kernel<CPL_WIDE>,
         (const void*)apgd_kernel<CPL_WIDE>,
-        (const void*)upsolve_yd_kernel};
-    if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
+        (const void*)upsolve_yd_kernel<false>,
+        (const void*)upsolve_yd_kernel<true>};
+    if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
     const void* k = kernels[which];
     cudaError_t e = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     cudaFuncAttributes a;
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
-    int n = 0;
+    int n = 0, clusters = 0;
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, threads,
                                                           smem_bytes);
+    if (e == cudaSuccess && (which == 1 || which == 3)) {
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(AC);
+        cfg.blockDim = dim3(threads);
+        cfg.dynamicSmemBytes = smem_bytes;
+        e = cudaOccupancyMaxActiveClusters(&clusters, k, &cfg);
+    }
     if (e != cudaSuccess) return (int)e;
     out[0] = a.numRegs;
     out[1] = (int)a.sharedSizeBytes;
     out[2] = smem_bytes;
     out[3] = n;
     out[4] = (int)a.localSizeBytes;
+    out[5] = clusters;
     return 0;
 }
 

@@ -115,18 +115,20 @@ def error_string(code: int, name: str) -> str:
 def kernel_info(name: str, which: int, threads: int,
                 smem_bytes: int) -> dict:
     """Registers per thread, static and dynamic shared memory per block
-    (bytes), resident blocks per SM and local memory per thread (bytes; 0
-    when nothing spills) of kernel ``which`` of library ``name`` at
-    ``threads`` threads and ``smem_bytes`` of dynamic shared memory
-    (``cudaFuncGetAttributes`` and
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    (bytes), resident blocks per SM, local memory per thread (bytes; 0
+    when nothing spills) and, for a kernel launched in thread block
+    clusters, the clusters the device holds at once (else 0) of kernel
+    ``which`` of library ``name`` at ``threads`` threads and
+    ``smem_bytes`` of dynamic shared memory (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and
+    ``cudaOccupancyMaxActiveClusters``)."""
     fn = load(name).fb_kernel_info
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     err = fn(which, threads, smem_bytes, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"{name}: kernel_info({which}) failed: CUDA error "
                            f"{err} ({error_string(err, name)})")
     return dict(regs=out[0], static_smem=out[1], dynamic_smem=out[2],
-                blocks_per_sm=out[3], local_bytes=out[4])
+                blocks_per_sm=out[3], local_bytes=out[4], clusters=out[5])

@@ -327,7 +327,7 @@ _ARGTYPES = {
                           + [_P]),           # stream
     "upsolve_launch": ([_P] * 14             # inputs (maskd as bits)
                        + [_P] * 2            # outputs yd, b
-                       + [_P] * 2            # the packed tables, the chain
+                       + [_P]                # the packed tables
                        + [_I] * 9            # sizes
                        + [_P]),              # stream
     "upsolve_yd_launch": ([_P] * 8           # inputs
@@ -339,12 +339,13 @@ _ARGTYPES = {
                     + [_I] * 9 + [_P]),      # sizes and counts, stream
 }
 
-# The kernels' shape limits (csrc/solve_rows.cu): one block of 256 threads
-# per env, Yd held as 8 warps x 14 dofs by 32 lanes x CPL column groups, in
-# two instances: CPL 5 takes R <= 160 rows, CPL 6 R <= 192 (its sixth
-# group read from shared memory, the first five in registers as in CPL 5).
-# A launch takes the narrower instance that holds R. Within them shared
-# memory stays under 227 kB per block (a chain of 112 dofs at 192 rows).
+# The kernels' shape limits (csrc/solve_rows.cu): solve_rows and
+# apgd_iterate run one block of 256 threads per env, Yd held as 8 warps x
+# 14 dofs by 32 lanes x CPL column groups, in two instances: CPL 5 takes
+# R <= 160 rows, CPL 6 R <= 192 (groups 4-5 read from shared memory, the
+# first four in registers). A launch takes the narrower instance that
+# holds R. Within them shared memory stays under 227 kB per block (a chain
+# of 112 dofs at 192 rows).
 THREADS = 256
 MAX_NV = 112
 CPL_NARROW, CPL_WIDE = 5, 6
@@ -353,12 +354,16 @@ MAX_R = 32 * CPL_WIDE
 # The top chain taken out of the up-sweep's pull: at most CHAIN dofs
 # (csrc CH).
 CHAIN = 6
-# upsolve_yd's block: YD_ENVS consecutive envs by YD_COLS columns (csrc
-# YE, YC), YD_PARTS threads per (env, column) pair, each on one part of
-# the dofs (csrc YQ).
+# upsolve_build_yd's and upsolve_yd's block (one kernel): YD_ENVS
+# consecutive envs by YD_COLS columns (csrc YE, YC), YD_PARTS threads per
+# (env, column) pair, each on one part of the dofs (csrc YQ).
 YD_ENVS, YD_COLS, YD_PARTS = 8, 16, 4
 YD_PAIRS = YD_ENVS * YD_COLS
 YD_THREADS = YD_PARTS * YD_PAIRS
+# apgd_iterate's thread block cluster: APGD_CLUSTER blocks on as many
+# consecutive envs (csrc AC); a warp loads APGD_RUNS runs of 32 words a
+# step (csrc AB).
+APGD_CLUSTER, APGD_RUNS = 8, 2
 
 
 def tile_cpl(R: int) -> int:
@@ -612,14 +617,75 @@ def upsolve_yd_pair(bx: int, by: int, t: int) -> tuple:
     return bx * YD_ENVS + p % YD_ENVS, by * YD_COLS + p // YD_ENVS
 
 
-def upsolve_yd_smem(nv: int, n_up: int) -> int:
+def upsolve_yd_smem(nv: int, n_up: int, build: bool = False) -> int:
     """upsolve_yd's dynamic shared memory per block, in bytes (csrc
-    ``upsolve_yd_kernel``): the pairs' columns (nv per pair); per env
-    qvel and qacc_smooth and the rhs sums of the pairs' other parts, then
-    in the same place the up-sweep's L entries (n_up); sqrt(dinv); then
-    cptr | cidx."""
-    region = max(n_up, 2 * nv + 2 * (YD_PARTS - 1) * YD_COLS)
+    ``upsolve_yd_kernel``): the pairs' columns (nv per pair); per env a
+    record of each dof's qvel and qacc_smooth (after its d6 with
+    ``build``: 8 words, else 2) and the rhs sums of the pairs' other parts,
+    then in the same place the up-sweep's L entries (n_up); sqrt(dinv);
+    then cptr | cidx."""
+    words = 8 if build else 2
+    region = max(n_up, words * nv + 2 * (YD_PARTS - 1) * YD_COLS)
     return 4 * (nv * YD_PAIRS + (region + nv) * YD_ENVS + nv + 1 + n_up)
+
+
+def upsolve_build_yd_smem(nv: int, n_up: int) -> int:
+    """upsolve_build_yd's dynamic shared memory per block, in bytes: the
+    same kernel's carve-up with each dof's d6 staged beside its qvel and
+    qacc_smooth."""
+    return upsolve_yd_smem(nv, n_up, build=True)
+
+
+def upsolve_yd_dof_parts(nv: int, ysplit) -> list:
+    """The dofs [v0, v1) of each of a pair's YD_PARTS threads, thread h
+    YD_PAIRS + p taking part h (csrc ``upsolve_yd_kernel``)."""
+    bounds = [0, *ysplit, nv]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def upsolve_build_yd_d6_copy(k, b0: int):
+    """Where upsolve_build_yd's block stages word k of its env tile's d6
+    (k < 6 nv YD_ENVS, k strided by the threads): (env, d6 word 6 v + c,
+    shared-memory slot (v YD_ENVS + e) 8 + c), as the kernel computes
+    them; 8 consecutive k read 8 consecutive envs, one sector."""
+    k = np.asarray(k)
+    e, vk = k % YD_ENVS, k // YD_ENVS
+    return b0 + e, vk, ((vk // 6) * YD_ENVS + e) * 8 + vk % 6
+
+
+def apgd_grid(B: int) -> int:
+    """apgd_iterate's grid: B rounded up to whole clusters of
+    APGD_CLUSTER blocks (csrc ``apgd_launch``); block b takes env b, and
+    the blocks from B on only load for their cluster."""
+    return -(-B // APGD_CLUSTER) * APGD_CLUSTER
+
+
+def _apgd_run(block, t, i, a):
+    """(first env of the cluster, lane, run n) of thread t of
+    apgd_iterate's block in step i, run a: warp w of the block of rank q
+    takes run n = ((i APGD_CLUSTER + q) 8 + w) APGD_RUNS + a, words
+    [32 n, 32 n + 32) of Yd's nv R for each of its cluster's envs."""
+    block, t = np.asarray(block), np.asarray(t)
+    q = block % APGD_CLUSTER
+    n = ((i * APGD_CLUSTER + q) * (THREADS // 32) + t // 32) * APGD_RUNS + a
+    return block - q, t % 32, n
+
+
+def apgd_load(block, t, i, a, j):
+    """The (env, word k) that thread t of apgd_iterate's block loads in
+    step i, run a, load j (csrc ``apgd_kernel``): word 32 n + 4 j +
+    lane / 8 of env lane % 8 of its cluster, so 8 lanes read one sector.
+    The kernel skips an env past B and a word past nv R."""
+    b0, lane, n = _apgd_run(block, t, i, a)
+    return b0 + lane % 8, 32 * n + 4 * j + lane // 8
+
+
+def apgd_store(block, t, i, a, e):
+    """What thread t of apgd_iterate's block stores into env e of its
+    cluster for step i, run a: (env, word 32 n + lane, and the lane and
+    load j whose register holds that word, the shuffle's source)."""
+    b0, lane, n = _apgd_run(block, t, i, a)
+    return b0 + e, 32 * n + lane, (lane % 4) * 8 + e, lane // 4
 
 
 def check_shape(who: str, nv: int, R: int) -> None:
@@ -630,22 +696,25 @@ def check_shape(who: str, nv: int, R: int) -> None:
 
 
 def kernel_info(kernel: str, nv: int, R: int, nM: int, tables: dict) -> dict:
-    """Registers, shared memory, resident blocks and warps per SM and local
-    (spill) bytes per thread of ``kernel`` ("solve_rows",
-    "upsolve_build_yd", "apgd_iterate", in the instance that takes R rows,
-    or "upsolve_yd") at these shapes, with the tree's ``pack_tables``
+    """Registers, shared memory, resident blocks and warps per SM, local
+    (spill) bytes per thread and active clusters (apgd_iterate's; 0 for
+    the others) of ``kernel`` ("solve_rows" or "apgd_iterate", in the
+    instance that takes R rows, "upsolve_yd" or "upsolve_build_yd") at
+    these shapes, with the tree's ``pack_tables``
     (``cuda_build.kernel_info``)."""
-    n_up, n_ch = tables["n_up"], tables["n_chain"]
-    if kernel == "upsolve_yd":
-        info = cuda_build.kernel_info("solve_rows", 6, YD_THREADS,
-                                      upsolve_yd_smem(nv, n_up))
+    n_up = tables["n_up"]
+    if kernel in ("upsolve_yd", "upsolve_build_yd"):
+        build = kernel == "upsolve_build_yd"
+        info = cuda_build.kernel_info("solve_rows", 5 if build else 4,
+                                      YD_THREADS,
+                                      upsolve_yd_smem(nv, n_up, build))
         return dict(info, warps_per_sm=info["blocks_per_sm"]
                     * YD_THREADS // 32)
-    which = ("solve_rows", "upsolve_build_yd", "apgd_iterate").index(kernel)
-    smem = (smem_bytes(nv, R, 0, 0, 0, 0) if kernel == "apgd_iterate" else
-            smem_bytes(nv, R, nM, tables["n_head"], n_up, n_ch))
+    which = ("solve_rows", "apgd_iterate").index(kernel)
+    smem = (smem_bytes(nv, R, 0, 0, 0, 0) if which else
+            smem_bytes(nv, R, nM, tables["n_head"], n_up, tables["n_chain"]))
     if tile_cpl(R) == CPL_WIDE:
-        which += 3
+        which += 2
     info = cuda_build.kernel_info("solve_rows", which, THREADS, smem)
     return dict(info, cpl=tile_cpl(R),
                 warps_per_sm=info["blocks_per_sm"] * THREADS // 32)
@@ -740,17 +809,15 @@ def upsolve_build_yd(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
     dev = d6.device
     check_args("upsolve_build_yd", checks, dev)
     check_shape("upsolve_build_yd", nv, R)
-    nM = ld.shape[0]
     tb = _tables(tree, dev)
     n_up = tb["n_up"]
-    smem = smem_bytes(nv, R, nM, tb["n_head"], n_up, tb["n_chain"])
     ptrs = [x.data_ptr() for _, x, _, _ in checks]
     ptrs[6] = _mask_bits_cached(maskd).data_ptr()
     yd = torch.empty((nv, R, B), dtype=torch.float32, device=dev)
     b = torch.empty((R, B), dtype=torch.float32, device=dev)
     _launch("upsolve_build_yd", "upsolve_launch", *ptrs, yd.data_ptr(),
-            b.data_ptr(), tb["tab"].data_ptr(), tb["chain"].data_ptr(), nv,
-            R, B, nM, n_up, tb["nch"], tb["dsplit"], tb["n_chain"], smem,
+            b.data_ptr(), tb["tab"].data_ptr(), nv, R, B, n_up, tb["nch"],
+            *tb["ysplit"], upsolve_build_yd_smem(nv, n_up),
             torch.cuda.current_stream(dev).cuda_stream)
     upsolve_build_yd.launches += 1
     return yd, b

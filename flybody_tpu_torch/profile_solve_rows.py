@@ -1,11 +1,13 @@
 """Where the time of the solve_rows kernel goes, by cutting parts out.
 
-    python3 -m flybody_tpu_torch.profile_solve_rows [--task TASK] [PKG_DIR ...]
+    python3 -m flybody_tpu_torch.profile_solve_rows [--task TASK] [--stages]
+        [PKG_DIR ...]
 
 Builds the solve_rows inputs of TASK (a ``fly_envs`` factory:
 walk_on_ball by default, R 152 rows, the narrow instance; walk_imitation,
-R 176, the wide one) on the card: B=4096, float32, a reset from a seeded
-CUDA generator and two control steps at mid-range actions. Then, for each
+R 176, the wide one; flight_imitation, R 64 over 42 dofs, the narrow one)
+on the card: B=4096, float32, a reset from a seeded CUDA generator and two
+control steps at mid-range actions. Then, for each
 package directory
 (default: this package; an older version unpacked with
 ``git archive <rev> flybody_tpu_torch | tar -x -C DIR`` is given as
@@ -18,7 +20,11 @@ calls) in a fresh process for each version of the source:
     no_upsweep  also without the up-sweep of Yd
 
 each with the main path's solver loop and with the loop off (iterations,
-noslip and power iterations 0). Prints one JSON line per package. The
+noslip and power iterations 0). With ``--stages`` only the full source
+runs, and the stage kernels on the same inputs are timed beside it:
+upsolve_build_yd, apgd_iterate on its Yd (with the loop and without),
+upsolve_yd on J^T of the same rows; with every kernel's registers, spill,
+shared memory and blocks per SM. Prints one JSON line per package. The
 cuts are textual and know three versions of the source (the first port,
 the register-tiled redesign, and the one with the top chain out of the
 up-sweep's pull); any other source raises. Needs a CUDA device.
@@ -63,20 +69,40 @@ _TIME = r"""
 import json, sys, torch, numpy as np
 from flybody_tpu_torch.ops import solver_kernels as SK, tree_ldl as TL
 d = torch.load(sys.argv[1])
+a, kw = d["args"], d["kw"]
 tree = TL.build_tree_meta(np.asarray(d["parent"], np.int32))
-kw0 = dict(d["kw"], iterations=0, noslip_iterations=0, power_iters=0)
-def ms(kw, reps=20):
-    SK.solve_rows(tree, **d["args"], **kw)
+kw0 = dict(kw, iterations=0, noslip_iterations=0, power_iters=0)
+def ms(fn, reps=20):
+    fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(reps):
-        SK.solve_rows(tree, **d["args"], **kw)
+        fn()
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
-print(json.dumps({"loop_on": ms(d["kw"]), "loop_off": ms(kw0)}))
+out = {"loop_on": ms(lambda: SK.solve_rows(tree, **a, **kw)),
+       "loop_off": ms(lambda: SK.solve_rows(tree, **a, **kw0))}
+if sys.argv[2:] == ["stages"]:
+    row = [a[k] for k in ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr",
+                          "maskd", "ld", "dinv", "qacc_smooth", "qvel",
+                          "kcoef", "bcoef", "posr")]
+    ap = [a[k] for k in ("rreg", "active", "mu", "f0", "v0")]
+    yd, b = SK.upsolve_build_yd(tree, *row)
+    jt = SK.build_jt_reference(*row[:7]).contiguous()
+    out.update(
+        upsolve_build_yd=ms(lambda: SK.upsolve_build_yd(tree, *row)),
+        apgd_iterate=ms(lambda: SK.apgd_iterate(yd, b, *ap, **kw)),
+        apgd_iterate_loop_off=ms(lambda: SK.apgd_iterate(yd, b, *ap, **kw0)),
+        upsolve_yd=ms(lambda: SK.upsolve_yd(tree, jt, *row[7:])))
+    nv, R = yd.shape[:2]
+    tabs = SK.pack_tables(tree)
+    out["occupancy"] = {k: SK.kernel_info(k, nv, R, a["ld"].shape[0], tabs)
+                        for k in ("solve_rows", "upsolve_build_yd",
+                                  "apgd_iterate", "upsolve_yd")}
+print(json.dumps(out))
 """
 
 
@@ -117,10 +143,14 @@ def make_inputs(task: str = "walk_on_ball", B: int = 4096) -> None:
                     parent=[int(p) for p in m.dof_parentid]), INPUTS)
 
 
-def profile(package: str) -> dict:
-    """{cut: {"loop_on": ms, "loop_off": ms}} for one package directory."""
+def profile(package: str, stages: bool = False) -> dict:
+    """{cut: {"loop_on": ms, "loop_off": ms}} for one package directory;
+    with ``stages`` the full source only, with the stage kernels' times
+    and every kernel's occupancy."""
     out = {}
     for name, cuts in CUTS.items():
+        if stages and cuts:
+            continue
         root = os.path.join(SCRATCH, name)
         shutil.rmtree(root, ignore_errors=True)
         dst = os.path.join(root, "flybody_tpu_torch")
@@ -131,9 +161,12 @@ def profile(package: str) -> dict:
             src = cut(fh.read(), cuts)
         with open(path, "w") as fh:
             fh.write(src)
-        res = subprocess.run([sys.executable, "-c", _TIME, INPUTS],
-                             cwd=root, capture_output=True, text=True,
-                             check=True)
+        res = subprocess.run([sys.executable, "-c", _TIME, INPUTS]
+                             + (["stages"] if stages else []),
+                             cwd=root, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"profile_solve_rows: {package} ({name}) "
+                               f"failed:\n{res.stderr}")
         out[name] = json.loads(res.stdout.strip().splitlines()[-1])
         shutil.rmtree(root)
     return out
@@ -142,14 +175,17 @@ def profile(package: str) -> dict:
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="walk_on_ball",
-                    choices=("walk_on_ball", "walk_imitation"))
+                    choices=("walk_on_ball", "walk_imitation",
+                             "flight_imitation"))
+    ap.add_argument("--stages", action="store_true",
+                    help="the full source only, with the stage kernels")
     ap.add_argument("packages", nargs="*", default=[PKG])
     args = ap.parse_args(argv)
     os.makedirs(SCRATCH, exist_ok=True)
     make_inputs(args.task)
     for package in args.packages:
         print(json.dumps({"task": args.task, "package": package,
-                          **profile(package)}), flush=True)
+                          **profile(package, args.stages)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -351,13 +351,13 @@ def test_chain_tables_drive_the_upsweep(name, nch, split):
 
 
 @pytest.mark.parametrize("B", [1, 7, 129, 4097])
-@pytest.mark.parametrize("R", [152, 176])
+@pytest.mark.parametrize("R", [64, 152, 176])
 def test_upsolve_yd_tiles_cover_each_pair_once(R, B):
-    """upsolve_yd's grid of env tiles by column tiles, each thread's
-    (env, column) as the kernel computes it: every pair of a ragged B
-    and R is taken by exactly YD_PARTS threads (one per part of the dofs),
-    and the threads left over are exactly those the kernel masks (past B
-    or R)."""
+    """upsolve_yd's (and upsolve_build_yd's: one kernel) grid of env tiles
+    by column tiles, each thread's (env, column) as the kernel computes
+    it: every pair of a ragged B and R is taken by exactly YD_PARTS
+    threads (one per part of the dofs), and the threads left over are
+    exactly those the kernel masks (past B or R)."""
     gx, gy = SK.upsolve_yd_grid(R, B)
     bx, by, t = np.meshgrid(np.arange(gx), np.arange(gy),
                             np.arange(SK.YD_THREADS), indexing="ij")
@@ -382,6 +382,121 @@ def test_upsolve_yd_smem():
         smem = SK.upsolve_yd_smem(tree.nv, SK.pack_tables(tree)["n_up"])
         assert smem == want
         assert 233472 // (smem + 1024) == blocks
+
+
+_TREE_OF_R = {64: "flight", 152: "walk_on_ball", 176: "imitation"}
+
+
+@pytest.mark.parametrize("B", [1, 7, 129, 4097])
+@pytest.mark.parametrize("R", [64, 152, 176])
+def test_upsolve_build_yd_builds_each_entry_once(R, B):
+    """upsolve_build_yd's grid at the tree of each task's R (flight's 64,
+    walk_on_ball's 152, walk_imitation's 176 rows): the YD_PARTS threads
+    of each (env, column) pair build disjoint parts of the dofs that
+    together are all nv of them, so every entry of J^T (dof, column, env)
+    of a ragged B is built exactly once; the parts' boundaries are
+    pack_tables' ysplit, above the top chain."""
+    tree = TL.build_tree_meta(np.asarray(_trees()[_TREE_OF_R[R]], np.int32))
+    t = SK.pack_tables(tree)
+    parts = SK.upsolve_yd_dof_parts(tree.nv, t["ysplit"])
+    assert len(parts) == SK.YD_PARTS and t["nch"] < parts[0][1]
+    assert parts[0][0] == 0 and parts[-1][1] == tree.nv
+    assert all(p[1] == q[0] and p[0] <= p[1] for p, q in zip(parts,
+                                                              parts[1:]))
+    gx, gy = SK.upsolve_yd_grid(R, B)
+    bx, by, th = np.meshgrid(np.arange(gx), np.arange(gy),
+                             np.arange(SK.YD_THREADS), indexing="ij")
+    b, r = SK.upsolve_yd_pair(bx, by, th)
+    live = (b < B) & (r < R)
+    size = np.array([hi - lo for lo, hi in parts])[th // SK.YD_PAIRS]
+    built = np.zeros((R, B), np.int64)
+    np.add.at(built, (r[live], b[live]), size[live])
+    assert (built == tree.nv).all()
+
+
+@pytest.mark.parametrize("B", [1, 7, 4097])
+def test_upsolve_build_yd_stages_d6_in_sectors(B):
+    """upsolve_build_yd's staging of its env tile's d6, as the kernel
+    strides it over the block's threads: in the last (ragged) tile every
+    word of every env under B lands once, in its own slot of the dof
+    records, nothing past B is read, and each 8 consecutive copies read
+    one word of 8 consecutive envs (one 32-byte sector)."""
+    nv = 105
+    b0 = (SK.upsolve_yd_grid(152, B)[0] - 1) * SK.YD_ENVS
+    k = np.arange(6 * nv * SK.YD_ENVS)
+    env, word, slot = SK.upsolve_build_yd_d6_copy(k, b0)
+    live = env < B
+    assert int(live.sum()) == 6 * nv * (B - b0)
+    assert len(set(slot[live].tolist())) == int(live.sum())
+    assert slot.max() < 8 * nv * SK.YD_ENVS and not bool(
+        ((slot % 8) >= 6).any())
+    pairs = set(zip(env[live].tolist(), word[live].tolist()))
+    assert pairs == {(e, w) for e in range(b0, B) for w in range(6 * nv)}
+    g_env, g_word = env.reshape(-1, 8), word.reshape(-1, 8)
+    assert (g_word == g_word[:, :1]).all()
+    assert (g_env - g_env[:, :1] == np.arange(8)).all()
+
+
+def test_upsolve_build_yd_smem():
+    """upsolve_build_yd's block at the three trees: upsolve_yd's carve-up
+    with each dof's d6 staged beside its qvel and qacc_smooth (8 words a
+    record). Two blocks share an SM at walk_on_ball's and walk_imitation's
+    trees (each block reserves 1 KB of the SM's 228 KB), five at
+    flight's; at walk_imitation's the L entries, not the records, size the
+    region, so it needs no more than upsolve_yd."""
+    for name, want, blocks in (("walk_on_ball", 89420, 2),
+                               ("imitation", 98968, 2),
+                               ("flight", 38360, 5)):
+        tree = TL.build_tree_meta(np.asarray(_trees()[name], np.int32))
+        n_up = SK.pack_tables(tree)["n_up"]
+        smem = SK.upsolve_build_yd_smem(tree.nv, n_up)
+        assert smem == want
+        assert 233472 // (smem + 1024) == blocks
+        assert smem >= SK.upsolve_yd_smem(tree.nv, n_up)
+        if name == "imitation":
+            assert smem == SK.upsolve_yd_smem(tree.nv, n_up)
+
+
+@pytest.mark.parametrize("B", [1, 7, 129, 4097])
+def test_apgd_cluster_grid_loads_each_word_once(B):
+    """apgd_iterate's grid of whole clusters, and the maps by which each
+    block loads its share of Yd for its cluster's envs and stores it into
+    their blocks, as the kernel computes them: block b takes env b, the
+    padded blocks (b >= B) only load; every word of every env under B is
+    loaded exactly once, by a lane of the env's own cluster, and nothing
+    past B is read; each 8 consecutive lanes of a load read one word of 8
+    consecutive envs (one sector); each store takes the word that its
+    shuffle's source lane loaded, and a warp's store goes to one env, 32
+    consecutive words. nw = 600 words: the last run is ragged. Past 17
+    clusters, the first and the last two (the maps repeat per cluster)."""
+    nw, ac, runs = 600, SK.APGD_CLUSTER, SK.APGD_RUNS
+    grid = SK.apgd_grid(B)
+    assert grid % ac == 0 and B <= grid < B + ac
+    blocks = np.arange(grid)
+    if grid > 17 * ac:
+        blocks = np.concatenate([blocks[:ac], blocks[-2 * ac:]])
+    envs = blocks[blocks < B]
+    steps = -(-nw // (32 * ac * (SK.THREADS // 32) * runs))
+    blk, i, a, j, t = np.meshgrid(blocks, np.arange(steps),
+                                  np.arange(runs), np.arange(8),
+                                  np.arange(SK.THREADS), indexing="ij")
+    env, k = SK.apgd_load(blk, t, i, a, j)
+    assert (env // ac == blk // ac).all()
+    live = (env < B) & (k < nw)
+    seen = np.zeros((nw, B), np.int64)
+    np.add.at(seen, (k[live], env[live]), 1)
+    assert (seen[:, envs] == 1).all() and int(seen.sum()) == nw * len(envs)
+    g_env, g_k = env.reshape(-1, 8), k.reshape(-1, 8)
+    assert (g_k == g_k[:, :1]).all()
+    assert (g_env - g_env[:, :1] == np.arange(8)).all()
+    # the stores: lane t % 32 of the same warp, load j of the same run
+    e = j                                   # one destination env per store
+    d_env, d_k, s_lane, s_j = SK.apgd_store(blk, t, i, a, e)
+    s_env, s_k = SK.apgd_load(blk, t - t % 32 + s_lane, i, a, s_j)
+    assert (s_env == d_env).all() and (s_k == d_k).all()
+    w_k = d_k.reshape(-1, 32)
+    assert (w_k - w_k[:, :1] == np.arange(32)).all()
+    assert (d_env.reshape(-1, 32) == d_env.reshape(-1, 32)[:, :1]).all()
 
 
 def test_upsolve_dense_factor_gives_yd():
@@ -587,20 +702,30 @@ def test_flight_imitation_on_card():
 def test_kernel_occupancy_on_card():
     """Both instances run two blocks of 8 warps per SM (16 warps), the
     narrow one at walk_on_ball's shapes and the wide one at
-    walk_imitation's, neither spilling its register tile to local memory.
-    upsolve_yd runs three 512-thread blocks at walk_on_ball's tree."""
+    walk_imitation's, neither spilling its register tile to local memory;
+    so does apgd_iterate, in clusters of APGD_CLUSTER blocks that fill
+    at least three quarters of the card's two blocks per SM. upsolve_yd
+    runs three 512-thread blocks at walk_on_ball's tree, upsolve_build_yd
+    at least two at all three trees, neither spilling."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
-    from flybody_tpu_torch.tasks import walk_on_ball as WOB
-    for parent, R, cpl in ((WOB.load_model()["dof_parentid"], 152, 5),
-                           (_imitation_parent(), 176, 6)):
-        tree = TL.build_tree_meta(np.asarray(parent, np.int32))
-        info = SK.kernel_info("solve_rows", tree.nv, R, tree.nM,
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, R, cpl in (("walk_on_ball", 152, 5), ("imitation", 176, 6)):
+        tree = TL.build_tree_meta(np.asarray(_trees()[name], np.int32))
+        for kernel in ("solve_rows", "apgd_iterate"):
+            info = SK.kernel_info(kernel, tree.nv, R, tree.nM,
+                                  SK.pack_tables(tree))
+            assert info["cpl"] == cpl
+            assert (info["blocks_per_sm"], info["warps_per_sm"]) == (2, 16)
+            assert info["local_bytes"] == 0
+        assert info["clusters"] * SK.APGD_CLUSTER >= 0.75 * 2 * n_sm
+    for name, R in (("walk_on_ball", 152), ("imitation", 176),
+                    ("flight", 64)):
+        tree = TL.build_tree_meta(np.asarray(_trees()[name], np.int32))
+        info = SK.kernel_info("upsolve_build_yd", tree.nv, R, tree.nM,
                               SK.pack_tables(tree))
-        assert info["cpl"] == cpl
-        assert (info["blocks_per_sm"], info["warps_per_sm"]) == (2, 16)
-        assert info["local_bytes"] == 0
-    tree = TL.build_tree_meta(np.asarray(WOB.load_model()["dof_parentid"],
+        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0
+    tree = TL.build_tree_meta(np.asarray(_trees()["walk_on_ball"],
                                          np.int32))
     info = SK.kernel_info("upsolve_yd", tree.nv, 152, tree.nM,
                           SK.pack_tables(tree))
@@ -627,5 +752,39 @@ def test_upsolve_yd_matches_plain_on_card(shape, B):
     torch.cuda.synchronize()
     assert SK.upsolve_yd.launches == n0 + 1
     # float32, other summation order: see chip_smoke.py's tolerances
+    for g, w in zip(got, want):
+        assert _max_rel(g, w) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 129, 4097])
+@pytest.mark.parametrize("shape", ["fly", "imitation", "flight"])
+def test_build_and_apgd_match_plain_on_card(shape, B):
+    """upsolve_build_yd (its env tiles ragged past B and R) and
+    apgd_iterate (its clusters padded past B) against their plain versions
+    (float32) at B that are no multiple of 8, at walk_on_ball's,
+    walk_imitation's and flight_imitation's shapes; each launch counted
+    once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    sh = RAGGED[shape]
+    tree, a = _problem("cuda", torch.float32, B=B, nbody=20, **sh)
+    kw = dict(KW, kl=sh["kl"], kc=sh["kc"])
+    row = [a[k] for k in ROW_ARGS]
+    n0 = SK.upsolve_build_yd.launches
+    got = SK.upsolve_build_yd(tree, *row)
+    want = SK.upsolve_build_yd_reference(tree, *row)
+    torch.cuda.synchronize()
+    assert SK.upsolve_build_yd.launches == n0 + 1
+    # float32, other summation order: see chip_smoke.py's tolerances
+    for g, w in zip(got, want):
+        assert _max_rel(g, w) < 1e-3
+    yd, b = (x.contiguous() for x in want)
+    ap = [a[k] for k in APGD_ARGS]
+    n0 = SK.apgd_iterate.launches
+    got = SK.apgd_iterate(yd, b, *ap, **kw)
+    want = SK.apgd_iterate_reference(yd, b, *ap, **kw)
+    torch.cuda.synchronize()
+    assert SK.apgd_iterate.launches == n0 + 1
     for g, w in zip(got, want):
         assert _max_rel(g, w) < 1e-3
