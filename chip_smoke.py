@@ -74,21 +74,41 @@ Phases (each prints its lines; any failure exits non-zero):
               every env; one substep of 4 envs on the card against the CPU
               as in phase 4; solve_rows against its plain version on the
               final state's inputs as in phase 5, its time with and without
-              the solver loop; upsolve_build_yd and apgd_iterate as in
-              phase 9. Then the template task (the free fly on a
-              floor, contact solver "apgd"): 8 envs, one control step,
-              finite obs and no hand kernel launched
- 11. registers, shared memory, resident blocks and warps per SM, local
+              the solver loop; upsolve_build_yd, upsolve_yd and
+              apgd_iterate as in phase 9. Then the template task (the free
+              fly on a floor, contact solver "apgd"): 8 envs, one control
+              step, finite obs and no hand kernel launched
+ 11. vision   vision_guided_flight over the trench (the flight fly over a
+              heightfield, both 32x32 eyes rendered every control step;
+              solve_rows at 88 rows over 42 dofs, the narrow instance) at
+              B=4096, float32: reset from a seeded CUDA generator, one
+              warm-up control step, then 10 autoreset_step calls with
+              mid-range actions; obs (both eyes) and reward finite,
+              solve_rows launched exactly 4 times per control step, in
+              every env each eye has a pixel that hits the terrain or a
+              geom; the eye render's ms per control step and the phase's
+              peak device memory; one substep of 4 envs placed with the
+              fly just touching the terrain on the card against the CPU
+              as in phase 4, heightfield contacts selected, penetrating
+              and among the solver's cones; one substep of the final
+              state's 4 envs the same way and solve_rows against its
+              plain version on the final state's inputs as in phase 10;
+              three learner updates with the vision networks on the card
+              against the CPU as in phase 8, on the phase's observations
+              at batch 256
+ 12. registers, shared memory, resident blocks and warps per SM, local
      (spill) bytes and apgd_iterate's active clusters of every kernel
-     (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes),
-     also as each kernel row's "occupancy"; the kernel table as JSON
-     ("launches" on the main path of phase 3 or 6-7, "launches_train" in
-     phase 8, solve_rows' "launches_imitation", "ms_imitation",
-     "plain_ms_imitation" and "bound_ms_imitation" in phase 9 and the same
-     "*_flight" keys in phase 10; upsolve_yd's "*_imitation" keys in phase
-     9; upsolve_build_yd's and apgd_iterate's "*_imitation" and
-     "*_flight" keys, and apgd_iterate's "loop_off_ms*"), the card line,
-     the result line
+     (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes,
+     solve_rows at the vision shape), also as each kernel row's
+     "occupancy"; the kernel table as JSON ("launches" on the main path of
+     phase 3 or 6-7, "launches_train" in phase 8, solve_rows'
+     "launches_imitation", "ms_imitation", "plain_ms_imitation" and
+     "bound_ms_imitation" in phase 9 and the same "*_flight" keys in phase
+     10 and "*_vision" keys in phase 11; upsolve_yd's "*_imitation" and
+     "*_flight" keys in phases 9-10, with its library yardstick's
+     "library_ms_*"; upsolve_build_yd's and apgd_iterate's "*_imitation"
+     and "*_flight" keys, and apgd_iterate's "loop_off_ms*"), the card
+     line, the result line
 """
 
 from __future__ import annotations
@@ -106,6 +126,9 @@ STEPS = 20
 ADMM_STEPS = 2
 IMIT_STEPS = 10
 FLIGHT_STEPS = 10
+VISION_STEPS = 10
+# learner updates with the vision networks: the batch of phase 8
+VISION_BATCH = 256
 TEMPLATE_B = 8
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
@@ -372,22 +395,26 @@ def train_phase(env, cfg, iterations, zero_counts, counts, smi):
     return launched, trainer.learner, loop
 
 
-def update_check(learner, cfg, seed: int = 1) -> None:
+def update_check(learner, cfg, seed: int = 1, obs_pool=None,
+                 tag: str = "update") -> None:
     """Phase 8b: UPDATE_STEPS learner updates on the card against the same
     updates on the CPU, from the same params (the port's init moved with
     .to()), the same numpy-seeded batches at the trainer's shapes and the
-    same action normals."""
+    same action normals. The batches' obs are standard normals, or rows
+    of ``obs_pool`` (n, obs_size) drawn by the same seed."""
     import numpy as np
     import torch
     from flybody_tpu_torch.agents.dmpo import DMPOLearner, Transition
     obs, act, n, b = (learner.obs_size, learner.action_size,
                       cfg.num_samples, cfg.batch_size)
     rng = np.random.RandomState(seed)
-    steps = [(dict(obs=rng.normal(size=(b, obs)),
+    draw_obs = (lambda: rng.normal(size=(b, obs))) if obs_pool is None \
+        else (lambda: obs_pool[rng.randint(0, len(obs_pool), b)])
+    steps = [(dict(obs=draw_obs(),
                    action=rng.uniform(-1, 1, (b, act)),
                    reward=rng.uniform(0, 1, b),
                    discount=np.full(b, cfg.discount ** cfg.n_step),
-                   next_obs=rng.normal(size=(b, obs))),
+                   next_obs=draw_obs()),
               rng.normal(size=(n, b, act))) for _ in range(UPDATE_STEPS)]
     card = learner.init(torch.Generator().manual_seed(seed))
     names = ("policy", "critic", "target_policy", "target_critic",
@@ -433,10 +460,10 @@ def update_check(learner, cfg, seed: int = 1) -> None:
         tol = TOL_DELTA if name == "params - init" else TOL_UPDATE
         rel, rel32 = dist(card[name], c32[name]), dist(c32[name], c64[name])
         bound = max(tol, F64_FACTOR * rel32)
-        print(f"update: {name:22s} card f32 vs cpu f32 {rel:.3e} (cpu f32 "
+        print(f"{tag}: {name:22s} card f32 vs cpu f32 {rel:.3e} (cpu f32 "
               f"vs f64 {rel32:.3e}; tol {bound:.3g})", flush=True)
         if not rel <= bound:
-            fail(f"update {name}: {rel:.3e} > {bound:.3g}")
+            fail(f"{tag} {name}: {rel:.3e} > {bound:.3g}")
 
 
 def main() -> int:
@@ -453,6 +480,7 @@ def main() -> int:
         return 1
     import numpy as np
     from flybody_tpu_torch.fly_envs import (flight_imitation, template_task,
+                                            vision_guided_flight,
                                             walk_imitation, walk_on_ball)
     from flybody_tpu_torch.ops import admm_kernel as AK
     from flybody_tpu_torch.ops import solver_kernels as SK
@@ -466,6 +494,7 @@ def main() -> int:
     from flybody_tpu_torch.envs.walker import FlyWalker
     from flybody_tpu_torch.physics import io_mj
     from flybody_tpu_torch.tasks import flight_imitation as FI
+    from flybody_tpu_torch.tasks import vision_flight as VF
     from flybody_tpu_torch.tasks import walk_imitation as WI
     from flybody_tpu_torch.tasks import walk_on_ball as WOB
 
@@ -915,11 +944,12 @@ def main() -> int:
           f"path, {train_launched['solve_rows']} in training", flush=True)
 
     def env_phase(label, env, steps):
-        """Phases 9-10: reset B envs from a seeded CUDA generator, one
+        """Phases 9-11: reset B envs from a seeded CUDA generator, one
         warm-up control step, then ``steps`` timed autoreset_step calls
         with mid-range actions; fails unless solve_rows launched once per
         substep (and nothing else) and obs and reward are finite. Returns
-        the final state and the launches."""
+        the final state, the launches and the seconds per control
+        step."""
         lo_e, hi_e = env.action_spec()
         mid_e = torch.as_tensor((lo_e + hi_e) / 2, dtype=f32,
                                 device=dev)[None].expand(B, -1)
@@ -954,14 +984,14 @@ def main() -> int:
         if not bool(torch.isfinite(st.reward).all()):
             fail(f"{label} reward not finite")
         print(f"{label}: obs {len(st.obs)} keys, "
-              f"{sum(v.shape[1] for v in st.obs.values())} floats per env, "
+              f"{sum(v[0].numel() for v in st.obs.values())} floats per env, "
               f"all finite; reward mean {st.reward.mean().item():.4e}, done "
               f"{int(st.done.sum())}, discount 0 in "
               f"{int((st.discount == 0).sum())}", flush=True)
-        return st, launched_e
+        return st, launched_e, dt_e / steps
 
     def hold_rows(label, env, st, launched_e, cpu_model, shape):
-        """Phases 9-10 on the final state ``st``: one substep of 4 envs on
+        """Phases 9-11 on the final state ``st``: one substep of 4 envs on
         the card against the CPU models ``cpu_model(dtype)`` as in phase 4,
         then solve_rows at the env's (nv, R, instance) ``shape`` against its
         plain version as in phase 5, timed with and without the solver
@@ -1006,10 +1036,53 @@ def main() -> int:
             f"bound_by_{label}": by_e})
         return R_e, args_e, kw_e, out_e[0]
 
+    def hold_upsolve(label, me, args_e):
+        """upsolve_yd on J^T of ``args_e``'s rows against its plain version
+        as in phase 6, timed beside its bound and its library yardstick
+        (one batched solve_triangular, Yd only); upsolve_yd's kernel row
+        gains the ``*_{label}`` keys."""
+        row_e = [args_e[k] for k in ROW_ARGS]
+        up_e = row_e[7:]
+        jt_e = SK.build_jt_reference(*row_e[:7]).contiguous()
+        got = SK.upsolve_yd(me.tree, jt_e, *up_e)
+        want = SK.upsolve_yd_reference(me.tree, jt_e, *up_e)
+        want64 = SK.upsolve_yd_reference(me.tree, jt_e.double(),
+                                         *(as64(x) for x in up_e))
+        torch.cuda.synchronize()
+        err = hold(f"{label} upsolve_yd", ("yd", "b"), got, want, want64)
+        del want64
+        ms = cuda_ms(lambda: SK.upsolve_yd(me.tree, jt_e, *up_e), 20)
+        pms = cuda_ms(lambda: SK.upsolve_yd_reference(me.tree, jt_e, *up_e),
+                      3)
+        lib_u = SK.upsolve_dense_factor(me.tree, args_e["ld"],
+                                        args_e["dinv"])
+        lib_j = jt_e.permute(2, 0, 1).contiguous()
+        lib_yd = torch.linalg.solve_triangular(lib_u, lib_j, upper=True)
+        torch.cuda.synchronize()
+        print(f"  {label} upsolve_yd library yardstick (solve_triangular, "
+              f"Yd only) vs plain: max_rel "
+              f"{max_rel(lib_yd.permute(1, 2, 0), want[0]):.3e}", flush=True)
+        del lib_yd, want
+        lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
+            lib_u, lib_j, upper=True), 20)
+        R_e = jt_e.shape[1]
+        b_ms, by = bound(SK.upsolve_yd_work(me.nv, R_e, B,
+                                            len(TL.flat_up(me.tree)),
+                                            build=False),
+                         nbytes(jt_e, *up_e, *got))
+        print(f"kernel: upsolve_yd {label} (nv {me.nv}, R {R_e}) B={B} "
+              f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({by}), library (solve_triangular, Yd only) {lib_ms:.3f} ms "
+              f"| {smi}", flush=True)
+        rows["upsolve_yd"].update(**{
+            f"max_abs_err_{label}": err, f"ms_{label}": ms,
+            f"plain_ms_{label}": pms, f"bound_ms_{label}": b_ms,
+            f"bound_by_{label}": by, f"library_ms_{label}": lib_ms})
+
     # ---- 9. walk_imitation -----------------------------------------------
     env_i = walk_imitation()
     mi = env_i.model
-    state_i, launched_i = env_phase("imitation", env_i, IMIT_STEPS)
+    state_i, launched_i, _ = env_phase("imitation", env_i, IMIT_STEPS)
     # the floor in contact: selected contacts with the floor geom on one
     # side (in a plane pair the floor is geom 1) that penetrate, and those
     # of them among the fused solver's cones
@@ -1044,34 +1117,8 @@ def main() -> int:
     check_rows("random wide", mi.tree, rnd_w,
                dict(rnd_kw, kl=32, kc=48))
     del rnd_w, p_w
-    # upsolve_yd at 176 rows: J^T of the final state's rows
-    row_i = [args_i[k] for k in ROW_ARGS]
-    up_i = row_i[7:]
-    jt_i = SK.build_jt_reference(*row_i[:7]).contiguous()
-    got4_i = SK.upsolve_yd(mi.tree, jt_i, *up_i)
-    want4_i = SK.upsolve_yd_reference(mi.tree, jt_i, *up_i)
-    want4_i64 = SK.upsolve_yd_reference(mi.tree, jt_i.double(),
-                                        *(as64(x) for x in up_i))
-    torch.cuda.synchronize()
-    err4_i = hold("imitation upsolve_yd", ("yd", "b"), got4_i, want4_i,
-                  want4_i64)
-    ms4_i = cuda_ms(lambda: SK.upsolve_yd(mi.tree, jt_i, *up_i), 20)
-    pms4_i = cuda_ms(lambda: SK.upsolve_yd_reference(mi.tree, jt_i, *up_i),
-                     3)
-    b4_i, by4_i = bound(SK.upsolve_yd_work(mi.nv, R_i, B,
-                                           len(TL.flat_up(mi.tree)),
-                                           build=False),
-                        nbytes(jt_i, *up_i, *got4_i))
-    print(f"kernel: upsolve_yd imitation (nv {mi.nv}, R {R_i}) B={B} kernel "
-          f"{ms4_i:.3f} ms, plain {pms4_i:.3f} ms, bound {b4_i:.4f} ms "
-          f"({by4_i}) | {smi}", flush=True)
-    rows["upsolve_yd"].update(max_abs_err_imitation=err4_i,
-                              ms_imitation=ms4_i,
-                              plain_ms_imitation=pms4_i,
-                              bound_ms_imitation=b4_i,
-                              bound_by_imitation=by4_i)
-    del state_i, con, pen, taken, row_i, up_i, jt_i, got4_i, want4_i, \
-        want4_i64
+    hold_upsolve("imitation", mi, args_i)
+    del state_i, con, pen, taken
     # upsolve_build_yd and apgd_iterate at 176 rows
     stage_keys("imitation",
                hold_stages("imitation", mi.tree, args_i, kw_i, b1_fi)[2])
@@ -1082,7 +1129,7 @@ def main() -> int:
     mf = env_f.model
     if env_f.n_substeps != 4:
         fail(f"flight: {env_f.n_substeps} substeps per control step")
-    state_f, launched_f = env_phase("flight", env_f, FLIGHT_STEPS)
+    state_f, launched_f, _ = env_phase("flight", env_f, FLIGHT_STEPS)
     fluid = state_f.data.qfrc_fluid.abs().amax(dim=0)
     print(f"flight: max |qfrc_fluid| per env: least {fluid.min().item():.3e}"
           f", most {fluid.max().item():.3e}", flush=True)
@@ -1094,9 +1141,10 @@ def main() -> int:
         lambda dt_: FI.make_flight_imitation("cpu", dtype=dt_).model,
         (42, 64, SK.CPL_NARROW))
     del state_f
-    # upsolve_build_yd and apgd_iterate at 64 rows over 42 dofs
+    # upsolve_build_yd, upsolve_yd and apgd_iterate at 64 rows over 42 dofs
     stage_keys("flight",
                hold_stages("flight", mf.tree, args_f, kw_f, b1_ff)[2])
+    hold_upsolve("flight", mf, args_f)
     del args_f
 
     # the template task: the APGD solver, no hand kernel
@@ -1123,7 +1171,114 @@ def main() -> int:
           f"all finite; reward {state_t.reward.mean().item():.1f}",
           flush=True)
 
-    # ---- 11. result ------------------------------------------------------
+    # ---- 11. vision_guided_flight ----------------------------------------
+    from flybody_tpu_torch.agents.dmpo import DMPOConfig, DMPOLearner
+    from flybody_tpu_torch.agents.networks import (VisionCritic,
+                                                   VisionPolicy,
+                                                   batch_concat, obs_layout)
+    from flybody_tpu_torch.agents.train import EYE_KEYS
+    from flybody_tpu_torch.ops import raycast
+    from flybody_tpu_torch.physics import collision as COL
+    env_v = vision_guided_flight()
+    mv, task_v = env_v.model, env_v.task
+    if env_v.n_substeps != 4:
+        fail(f"vision: {env_v.n_substeps} substeps per control step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_v, launched_v, step_s = env_phase("vision", env_v, VISION_STEPS)
+    peak_v = torch.cuda.max_memory_allocated()
+    dv = state_v.data
+    # every eye of every env sees the terrain or a geom; which is nearest
+    hits = task_v.render_eyes(mv, dv, distance=True)
+    for key, body, pos, mat in task_v.eyes:
+        cam_pos, cam_mat = task_v.camera_pose(dv, body, pos, mat)
+        t_ter = raycast.render_eye(cam_pos, cam_mat, task_v.rays,
+                                   task_v.height_fn, distance=True)
+        hit = hits[key] < 10.0
+        n_hit = hit.flatten(1).sum(dim=1)
+        ter = (hit & (t_ter <= hits[key])).float().mean().item()
+        print(f"vision: {key}: pixels that hit something per env: least "
+              f"{int(n_hit.min())}, mean {n_hit.float().mean().item():.1f} "
+              f"of {hit[0].numel()}; {100 * ter:.2f} % of all pixels see "
+              f"the terrain first", flush=True)
+        if not bool((n_hit > 0).all()):
+            fail(f"vision: {key} sees nothing in {int((n_hit == 0).sum())} "
+                 "envs")
+    del hits, t_ter, hit
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    task_v.render_eyes(mv, dv)
+    torch.cuda.synchronize()
+    render_peak = torch.cuda.max_memory_allocated() - base
+    render_ms = cuda_ms(lambda: task_v.render_eyes(mv, dv), 5)
+    # two renders per control step: the step's obs and the fresh batch of
+    # the auto-reset
+    print(f"vision: eye render (both eyes, B={B}, {task_v.rays.shape[0]}x"
+          f"{task_v.rays.shape[1]}, chunks of {raycast.RENDER_CHUNK} envs) "
+          f"{render_ms:.2f} ms per call, 2 calls per control step = "
+          f"{2 * render_ms:.2f} ms of {1e3 * step_s:.1f} ms "
+          f"({100 * 2e-3 * render_ms / step_s:.1f} %); device memory: a "
+          f"render's peak {render_peak / 1e9:.2f} GB over {base / 1e9:.2f} "
+          f"GB held, the phase's peak {peak_v / 1e9:.2f} GB | {smi}",
+          flush=True)
+    cpu_v = {dt_: VF.make_vision_flight("cpu", dtype=dt_).model
+             for dt_ in (f32, f64)}
+    # 4 envs lowered until their deepest terrain pair penetrates ~0.002
+    # (a pair on a trench wall, its normal near horizontal, moves less
+    # than the fly: lower again until one penetrates)
+    ter_g = mv.names["geom"]["terrain"]
+    hslots = mv.ix(np.nonzero(COL._slot_identity(mv)[0] == ter_g)[0])
+    touch = first_four(dv)
+    lowered = np.zeros(4)
+    for _ in range(8):
+        d4 = F.fwd_position(mv, bridge.data_from_numpy(touch, mv))
+        dmin = COL._narrowphase(mv, d4)[0][hslots].amin(dim=0)
+        dmin = dmin.double().cpu().numpy()
+        dz = np.where(dmin > -0.001, dmin + 0.002, 0.0)
+        touch["qpos"][2] -= dz
+        lowered += dz
+    out = substep_check("vision touching", mv, "fused", small=touch,
+                        cpu=cpu_v)
+    con = out.contact
+    pen = (con.g1 == ter_g) & (con.dist < 0)
+    lay_v = SF.fused_layout(mv, C.efc_meta(mv))
+    cone_rows = mv.ix(np.concatenate([np.arange(a, b)
+                                      for a, b in lay_v["cone"]]))
+    taken = torch.gather(pen, 0, cone_rows[out.sol_cone_sel.long()])
+    print(f"vision: 4 envs lowered by {lowered.round(4).tolist()} to a "
+          f"deepest terrain pair at {dmin.round(4).tolist()}: "
+          f"terrain contacts selected {(con.g1 == ter_g).sum(0).tolist()}, "
+          f"penetrating {pen.sum(0).tolist()}, among the solver's "
+          f"{lay_v['k_cone']} cones {taken.sum(0).tolist()}", flush=True)
+    if not (bool(pen.any(0).all()) and bool(taken.any(0).all())):
+        fail("vision: a penetrating terrain contact did not reach the "
+             "solver in every env")
+    del d4, out, con, pen, taken
+    # solve_rows at 88 rows over 42 dofs, the narrow instance
+    R_v = hold_rows("vision", env_v, state_v, launched_v,
+                    lambda dt_: cpu_v[dt_], (42, 88, SK.CPL_NARROW))[0]
+    # learner updates with the vision networks on the phase's obs
+    keys_v, slices_v = obs_layout(state_v.obs)
+    obs_v = sum(v[1] for v in slices_v.values())
+    eyes_v = tuple(slices_v[k] for k in EYE_KEYS)
+    pool = batch_concat(state_v.obs, keys=keys_v,
+                        num_batch_dims=1).double().cpu().numpy()
+    del state_v, dv
+    vcfg = DMPOConfig(batch_size=VISION_BATCH, n_step=5, num_samples=20)
+    gen_v = torch.Generator().manual_seed(0)
+    act_v = env_v.action_size
+    learner_v = DMPOLearner(
+        VisionPolicy(obs_v, act_v, eyes_v, generator=gen_v).to(dev),
+        VisionCritic(obs_v, act_v, eyes_v, generator=gen_v).to(dev),
+        act_v, obs_v, vcfg)
+    print(f"vision update: VisionPolicy and VisionCritic on {obs_v} obs "
+          f"floats ({len(eyes_v)} eyes of {eyes_v[0][2]}), batch "
+          f"{VISION_BATCH}", flush=True)
+    update_check(learner_v, vcfg, obs_pool=pool, tag="vision update")
+    del pool, learner_v
+
+    # ---- 12. result ------------------------------------------------------
     shapes = {"": (m.nv, R, m.tree), "_imitation": (mi.nv, R_i, mi.tree),
               "_flight": (mf.nv, R_f, mf.tree)}
     occupancy = [(name, at, SK.kernel_info(name, nv_, R_, tr.nM,
@@ -1131,7 +1286,9 @@ def main() -> int:
                  for name in ("solve_rows", "upsolve_build_yd",
                               "apgd_iterate")
                  for at, (nv_, R_, tr) in shapes.items()]
-    occupancy += [("upsolve_yd", "", SK.kernel_info(
+    occupancy += [("solve_rows", "_vision", SK.kernel_info(
+        "solve_rows", mv.nv, R_v, mv.tree.nM, SK.pack_tables(mv.tree))),
+                  ("upsolve_yd", "", SK.kernel_info(
         "upsolve_yd", m.nv, R, m.tree.nM, SK.pack_tables(m.tree))),
                   ("admm_iterate", "", AK.kernel_info(n_rows))]
     for name, at, info in occupancy:

@@ -1,10 +1,15 @@
-"""DMPO networks: the MLP policy and the distributional critic.
+"""DMPO networks: the MLP policy and the distributional critic, and their
+vision variants.
 
 * policy: flat obs -> LayerNormMLP(256, 256, 256) -> NormalDiagHead
   (init_scale 0.7, min_scale 1e-6)
 * critic: clip the action to [-1, 1], concat with the obs ->
   LayerNormMLP(512, 512, 256) -> Linear logits over 51 atoms in
   [-150, 150]
+* vision: the flat obs's two eye images go through VisNetFly (four 3x3
+  stride-2 convs, flax's "SAME" padding, and a Linear to 8 features),
+  whose features replace the pixels before the policy's or the critic's
+  MLP (reference vnl_ray/agents/vis_net.py:30-109)
 
 Observation dicts flatten in sorted key order (``obs_layout``). The
 parameters start as flax's would: ``lecun_normal`` kernels (a normal
@@ -55,6 +60,15 @@ def _dense_init(layer: nn.Linear, scale: float, generator) -> None:
     std = math.sqrt(scale / fan_in) / _TRUNC_STD
     layer.weight.copy_(_truncated_normal(layer.weight.shape, std, generator))
     layer.bias.zero_()
+
+
+@torch.no_grad()
+def _conv_init(conv: nn.Conv2d, generator) -> None:
+    """flax Conv's default init: lecun_normal over fan_in = kh kw in."""
+    fan_in = conv.weight[0].numel()
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    conv.weight.copy_(_truncated_normal(conv.weight.shape, std, generator))
+    conv.bias.zero_()
 
 
 def _linear(n_in: int, n_out: int) -> nn.Linear:
@@ -199,6 +213,151 @@ class DistributionalCritic(nn.Module):
             action = torch.clamp(action, self.action_clip[0],
                                  self.action_clip[1])
         logits = self.logits(self.mlp(torch.cat([x, action], dim=-1)))
+        values = torch.linspace(self.vmin, self.vmax, self.num_atoms,
+                                dtype=logits.dtype, device=logits.device)
+        return DiscreteValued(logits=logits, values=values)
+
+
+def _same_pad(size: int, k: int, stride: int) -> tuple:
+    """flax/lax "SAME" padding (before, after) of one spatial axis: the
+    larger half after (32 -> 16 at stride 2 pads (0, 1))."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class VisNetFly(nn.Module):
+    """Eye-camera conv net (reference vnl_ray/agents/vis_net.py:30-109):
+    the left and right eyes stacked as 2 channels, normalized, four 3x3
+    stride-2 convs with relu, flattened in flax's (H, W, C) order, then a
+    Linear to ``out_features``."""
+
+    CONVS = ((8, 2), (16, 2), (32, 2), (64, 2))
+
+    def __init__(self, eye_shape=(32, 32), out_features: int = 8,
+                 norm_mean: float = 77.0, norm_std: float = 56.0,
+                 generator=None):
+        super().__init__()
+        self.norm_mean, self.norm_std = norm_mean, norm_std
+        self.eye_shape = tuple(eye_shape)
+        convs, pads = [], []
+        h, w = self.eye_shape
+        c_in = 2
+        for c_out, stride in self.CONVS:
+            convs.append(nn.utils.skip_init(nn.Conv2d, c_in, c_out, 3,
+                                            stride=stride))
+            # F.pad's order: (left, right, top, bottom)
+            pads.append(_same_pad(w, 3, stride) + _same_pad(h, 3, stride))
+            h, w = -(-h // stride), -(-w // stride)
+            c_in = c_out
+        self.convs = nn.ModuleList(convs)
+        self.pads = tuple(pads)
+        self.dense = _linear(c_in * h * w, out_features)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        for conv in self.convs:
+            _conv_init(conv, generator)
+        _dense_init(self.dense, 1.0, generator)
+
+    def forward(self, left_eye: torch.Tensor,
+                right_eye: torch.Tensor) -> torch.Tensor:
+        lead = left_eye.shape[:-2]
+        x = torch.stack([left_eye, right_eye], dim=-3).reshape(
+            (-1, 2) + self.eye_shape)
+        x = (x - self.norm_mean) / self.norm_std
+        for conv, pad in zip(self.convs, self.pads):
+            x = F.relu(conv(F.pad(x, pad)))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.dense(x).reshape(tuple(lead) + (-1,))
+
+
+def _drop_slices(x: torch.Tensor, spans) -> torch.Tensor:
+    """Remove the [start, start + size) spans from the last axis."""
+    parts, pos = [], 0
+    for s, n in sorted(spans):
+        if s > pos:
+            parts.append(x[..., pos:s])
+        pos = s + n
+    if pos < x.shape[-1]:
+        parts.append(x[..., pos:])
+    return torch.cat(parts, dim=-1)
+
+
+def _vis_features(vis: VisNetFly, eye_slices, obs: torch.Tensor):
+    """The two eyes' slices of the flat ``obs`` through ``vis`` ->
+    (features, the obs without the eye slices)."""
+    views = [obs[..., s:s + sz].reshape(tuple(obs.shape[:-1]) + tuple(shape))
+             for s, sz, shape in eye_slices]
+    return vis(*views), _drop_slices(obs, [(s, sz)
+                                           for s, sz, _ in eye_slices])
+
+
+def _check_eyes(eye_slices) -> tuple:
+    eye_slices = tuple((int(s), int(sz), tuple(shape))
+                       for s, sz, shape in eye_slices)
+    if len(eye_slices) != 2:
+        raise ValueError(f"VisNetFly reads two eyes, got {len(eye_slices)} "
+                         "image slices")
+    return eye_slices
+
+
+class VisionPolicy(nn.Module):
+    """Policy with the eye front-end: VisNetFly's features replace the
+    flat observation's eye pixels before the MLP policy."""
+
+    def __init__(self, obs_size: int, action_size: int, eye_slices,
+                 layer_sizes: Sequence[int] = (256, 256, 256),
+                 vis_features: int = 8, init_scale: float = 0.7,
+                 generator=None):
+        super().__init__()
+        self.eye_slices = _check_eyes(eye_slices)
+        rest = obs_size - sum(sz for _, sz, _ in self.eye_slices)
+        self.vis = VisNetFly(self.eye_slices[0][2], vis_features,
+                             generator=generator)
+        self.mlp = LayerNormMLP(vis_features + rest, layer_sizes,
+                                activate_final=True, generator=generator)
+        self.head = NormalDiagHead(layer_sizes[-1], action_size,
+                                   init_scale=init_scale, generator=generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.vis.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+        self.head.reset_parameters(generator)
+
+    def forward(self, obs: torch.Tensor) -> NormalDiag:
+        feat, rest = _vis_features(self.vis, self.eye_slices, obs)
+        return self.head(self.mlp(torch.cat([feat, rest], dim=-1)))
+
+
+class VisionCritic(nn.Module):
+    """Distributional critic with the same eye front-end."""
+
+    def __init__(self, obs_size: int, action_size: int, eye_slices,
+                 layer_sizes: Sequence[int] = (512, 512, 256),
+                 vis_features: int = 8, vmin: float = -150.0,
+                 vmax: float = 150.0, num_atoms: int = 51, generator=None):
+        super().__init__()
+        self.eye_slices = _check_eyes(eye_slices)
+        rest = obs_size - sum(sz for _, sz, _ in self.eye_slices)
+        self.vis = VisNetFly(self.eye_slices[0][2], vis_features,
+                             generator=generator)
+        self.mlp = LayerNormMLP(vis_features + rest + action_size,
+                                layer_sizes, activate_final=True,
+                                generator=generator)
+        self.logits = _linear(layer_sizes[-1], num_atoms)
+        self.vmin, self.vmax, self.num_atoms = vmin, vmax, num_atoms
+        _dense_init(self.logits, 1.0, generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.vis.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+        _dense_init(self.logits, 1.0, generator)
+
+    def forward(self, obs: torch.Tensor,
+                action: torch.Tensor) -> DiscreteValued:
+        feat, rest = _vis_features(self.vis, self.eye_slices, obs)
+        h = torch.cat([feat, rest, torch.clamp(action, -1.0, 1.0)], dim=-1)
+        logits = self.logits(self.mlp(h))
         values = torch.linspace(self.vmin, self.vmax, self.num_atoms,
                                 dtype=logits.dtype, device=logits.device)
         return DiscreteValued(logits=logits, values=values)

@@ -6,7 +6,8 @@ A flax tree arrives as nested dicts of numpy arrays, e.g. the policy's
                                    "LayerNorm_0": {"scale", "bias"}, ...},
                 "NormalDiagHead_0": {"Dense_0": ..., "Dense_1": ...}}}
 
-A flax Dense kernel is (in, out); a torch Linear weight is (out, in).
+A flax Dense kernel is (in, out); a torch Linear weight is (out, in). The
+vision networks' ``VisNetFly_0`` subtree goes to their ``vis`` module.
 """
 
 from __future__ import annotations
@@ -35,10 +36,25 @@ def _mlp(out: dict, node: dict) -> None:
     out["mlp.norm.bias"] = _tensor(node["LayerNorm_0"]["bias"])
 
 
+def _visnet(out: dict, node: dict) -> None:
+    """flax VisNetFly: a Conv kernel is (kh, kw, in, out), a torch Conv2d
+    weight (out, in, kh, kw)."""
+    n = sum(k.startswith("Conv_") for k in node)
+    for i in range(n):
+        conv = node[f"Conv_{i}"]
+        out[f"vis.convs.{i}.weight"] = _tensor(
+            np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+        out[f"vis.convs.{i}.bias"] = _tensor(conv["bias"])
+    _dense(out, "vis.dense", node["Dense_0"])
+
+
 def policy_state_dict(variables: dict) -> dict:
-    """flax PolicyNetwork variables -> PolicyNetwork state_dict."""
+    """flax PolicyNetwork or VisionPolicy variables -> the state_dict of
+    PolicyNetwork or VisionPolicy."""
     p = variables.get("params", variables)
     out = {}
+    if "VisNetFly_0" in p:
+        _visnet(out, p["VisNetFly_0"])
     _mlp(out, p["LayerNormMLP_0"])
     head = p["NormalDiagHead_0"]
     _dense(out, "head.mean", head["Dense_0"])
@@ -47,10 +63,12 @@ def policy_state_dict(variables: dict) -> dict:
 
 
 def critic_state_dict(variables: dict) -> dict:
-    """flax DistributionalCritic variables -> DistributionalCritic
-    state_dict."""
+    """flax DistributionalCritic or VisionCritic variables -> the
+    state_dict of DistributionalCritic or VisionCritic."""
     p = variables.get("params", variables)
     out = {}
+    if "VisNetFly_0" in p:
+        _visnet(out, p["VisNetFly_0"])
     _mlp(out, p["LayerNormMLP_0"])
     _dense(out, "logits", p["Dense_0"])
     return out

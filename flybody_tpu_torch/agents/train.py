@@ -3,13 +3,15 @@
 
 Rate limiting (samples_per_insert) is a deterministic number of updates per
 rollout chunk. Everything lives on the env's device: the networks, the
-replay ring, the generators. Only the "plain" network mode (MLP policy +
-distributional critic) is ported; the intention and vision modes are
-ROADMAP A6.
+replay ring, the generators. Network modes: "plain" (MLP policy +
+distributional critic) and "vision" (the fly's two eyes through VisNetFly
+in both); the intention mode is ROADMAP A6, and the rodent's one-camera
+VisNetRodent comes with the rodent (A7).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Sequence
 
@@ -19,9 +21,11 @@ from flybody_tpu_torch.agents.actors import (RolloutConfig, init_rollout_tail,
                                              make_rollout_fn)
 from flybody_tpu_torch.agents.dmpo import (DMPOConfig, DMPOLearner,
                                            TrainState, Transition)
-from flybody_tpu_torch.agents.networks import (PolicyNetwork,
+from flybody_tpu_torch.agents.networks import (VisionCritic, VisionPolicy,
                                                make_policy_critic, obs_layout)
 from flybody_tpu_torch.agents.replay import ReplayBuffer
+
+EYE_KEYS = ("left_eye", "right_eye")
 
 
 @dataclasses.dataclass
@@ -43,7 +47,7 @@ class TrainerConfig:
     samples_per_insert: float = 32.0
     dmpo: DMPOConfig = dataclasses.field(default_factory=DMPOConfig)
     rollout: RolloutConfig = dataclasses.field(default_factory=RolloutConfig)
-    # network mode: only "plain" is ported ("intention", "vision": A6)
+    # network mode: "plain" or "vision" ("intention": A6)
     network: str = "plain"
     # network shapes (reference network_factory.py:89-113 defaults)
     policy_layers: Sequence[int] = (256, 256, 256)
@@ -59,7 +63,7 @@ class DMPOTrainer:
     factories give "cuda" unless the caller names another)."""
 
     def __init__(self, env, cfg: TrainerConfig = TrainerConfig()):
-        if cfg.network != "plain":
+        if cfg.network not in ("plain", "vision"):
             raise NotImplementedError(
                 f"network={cfg.network!r} is not ported yet (ROADMAP A6)")
         self.env = env
@@ -69,11 +73,14 @@ class DMPOTrainer:
         self.obs_keys, self.obs_slices = obs_layout(env.reset(1).obs)
         self.obs_size = sum(self.obs_slices[k][1] for k in self.obs_keys)
         self.action_size = env.action_size
-        policy, critic = make_policy_critic(
-            self.action_size, self.obs_size,
-            policy_layers=tuple(cfg.policy_layers),
-            critic_layers=tuple(cfg.critic_layers),
-            vmin=cfg.vmin, vmax=cfg.vmax, num_atoms=cfg.num_atoms)
+        if cfg.network == "vision":
+            policy, critic = self._vision_nets()
+        else:
+            policy, critic = make_policy_critic(
+                self.action_size, self.obs_size,
+                policy_layers=tuple(cfg.policy_layers),
+                critic_layers=tuple(cfg.critic_layers),
+                vmin=cfg.vmin, vmax=cfg.vmax, num_atoms=cfg.num_atoms)
         self.policy = policy.to(self.device, self.dtype)
         self.critic = critic.to(self.device, self.dtype)
         self.learner = DMPOLearner(self.policy, self.critic,
@@ -91,6 +98,28 @@ class DMPOTrainer:
         self.updates_per_iter = max(
             1, int(inserted * cfg.samples_per_insert // cfg.dmpo.batch_size))
         self._stat_keys = None  # the learner's stat names, once known
+
+    def _vision_nets(self):
+        """The fly's stereo eyes through VisNetFly in the policy and the
+        critic (reference vis_net.py:30-109)."""
+        cfg = self.cfg
+        eye_slices = tuple(self.obs_slices[k] for k in EYE_KEYS
+                           if k in self.obs_slices)
+        if len(eye_slices) != 2:
+            if "egocentric_camera" in self.obs_slices:
+                raise NotImplementedError(
+                    "the one-camera VisNetRodent is not ported yet "
+                    "(ROADMAP A7)")
+            raise ValueError(
+                f"vision network needs {EYE_KEYS} observations; the env "
+                f"has {sorted(self.obs_slices)}")
+        policy = VisionPolicy(self.obs_size, self.action_size, eye_slices,
+                              layer_sizes=tuple(cfg.policy_layers))
+        critic = VisionCritic(self.obs_size, self.action_size, eye_slices,
+                              layer_sizes=tuple(cfg.critic_layers),
+                              vmin=cfg.vmin, vmax=cfg.vmax,
+                              num_atoms=cfg.num_atoms)
+        return policy, critic
 
     def init(self, seed: int = 0) -> LoopState:
         g = torch.Generator().manual_seed(seed)
@@ -117,10 +146,9 @@ class DMPOTrainer:
     def load_teacher(self, teacher_state_dict: dict, epsilon: float) -> None:
         """Enable kickstarting: distill from a frozen teacher policy
         (reference learning_dmpo.py:361-373)."""
-        teacher = PolicyNetwork(self.obs_size, self.action_size,
-                                layer_sizes=tuple(self.cfg.policy_layers))
+        teacher = copy.deepcopy(self.policy)
         teacher.load_state_dict(teacher_state_dict)
-        teacher = teacher.to(self.device, self.dtype).requires_grad_(False)
+        teacher = teacher.requires_grad_(False)
         self.learner.cfg = dataclasses.replace(
             self.learner.cfg, kickstart_epsilon=epsilon,
             teacher_apply=teacher)

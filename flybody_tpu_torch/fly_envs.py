@@ -15,6 +15,7 @@ import torch
 
 from flybody_tpu_torch.tasks.flight_imitation import make_flight_imitation
 from flybody_tpu_torch.tasks.template_task import make_template_task
+from flybody_tpu_torch.tasks.vision_flight import make_vision_flight
 from flybody_tpu_torch.tasks.walk_imitation import make_walk_imitation
 from flybody_tpu_torch.tasks.walk_on_ball import make_walk_on_ball
 
@@ -62,3 +63,13 @@ def flight_imitation(device=None, ref_path: str | None = None,
                                  ref_path=ref_path,
                                  wpg_pattern_path=wpg_pattern_path,
                                  time_limit=time_limit)
+
+
+def vision_guided_flight(device=None, bumps_or_trench: str = "trench",
+                         time_limit: float = 0.4, dtype=torch.float32):
+    """The winged fly flying over a "trench" or "bumps" heightfield at a
+    target height and speed, seeing it through two 32x32 eyes rendered on
+    the device, its wings driven by the wing-beat pattern generator."""
+    return make_vision_flight(default_device(device),
+                              bumps_or_trench=bumps_or_trench,
+                              time_limit=time_limit, dtype=dtype)

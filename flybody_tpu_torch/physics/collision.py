@@ -13,9 +13,12 @@ idiom); here they are per-env index gathers (ops/rows), and the top-K is a
 stable sort so ties resolve to the lower index exactly as ``lax.top_k``.
 
 Analytic pair functions ported: sphere-sphere, sphere-capsule and
-capsule-capsule (the pairs of the walk_on_ball model), and plane-sphere,
+capsule-capsule (the pairs of the walk_on_ball model), plane-sphere,
 plane-capsule, plane-ellipsoid and plane-cylinder (the floor pairs of
-walk_imitation). The box and heightfield pairs raise NotImplementedError.
+walk_imitation), and heightfield-sphere, -capsule, -ellipsoid and
+-cylinder (the terrain pairs of vision_guided_flight). The heightfield
+makers read the model's terrain, so ``_dispatch`` takes the model. The box
+pairs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -171,6 +174,119 @@ def _capsule_capsule(p1, m1, s1, p2, m2, s2):
     return _sphere_sphere(c1, m1, _zero_r(s1), c2, m2, _zero_r(s2))
 
 
+def _hfield_height_normal(m: Model, hid: int, xy_local, size):
+    """Bilinear height and unit normal of heightfield ``hid`` in its local
+    frame at xy_local (P, 2, B) -> (h (P, B), n (P, 3, B)). The cell index
+    is clamped after the cast as well, so a NaN position reads a valid
+    cell (and stays NaN) instead of indexing out of range."""
+    data = m.hfield_data[hid]
+    nr, nc = m.hfield_nrow, m.hfield_ncol
+    sx, sy, zt = size[0], size[1], size[2]
+    fx = (xy_local[..., 0, :] / sx + 1.0) * 0.5 * (nc - 1)
+    fy = (xy_local[..., 1, :] / sy + 1.0) * 0.5 * (nr - 1)
+    fx = torch.clamp(fx, 0.0, nc - 1.001)
+    fy = torch.clamp(fy, 0.0, nr - 1.001)
+    ix = torch.floor(fx).long().clamp(0, nc - 2)
+    iy = torch.floor(fy).long().clamp(0, nr - 2)
+    tx, ty = fx - ix.to(fx.dtype), fy - iy.to(fy.dtype)
+    h00 = data[iy, ix]
+    h01 = data[iy, ix + 1]
+    h10 = data[iy + 1, ix]
+    h11 = data[iy + 1, ix + 1]
+    h = ((1 - ty) * ((1 - tx) * h00 + tx * h01)
+         + ty * ((1 - tx) * h10 + tx * h11)) * zt
+    dx = (((1 - ty) * (h01 - h00) + ty * (h11 - h10)) * zt
+          / (2.0 * sx / (nc - 1)))
+    dy = (((1 - tx) * (h10 - h00) + tx * (h11 - h01)) * zt
+          / (2.0 * sy / (nr - 1)))
+    n = torch.stack([-dx, -dy, torch.ones_like(dx)], dim=-2)
+    return h, n / _norm(n)
+
+
+def _make_hfield_sphere(m: Model, hid: int):
+    def fn(p1, m1, s1, p2, m2, s2):
+        local = bq.matvec_t(m1, p2 - p1)
+        h, nl = _hfield_height_normal(m, hid, local[..., :2, :],
+                                      m.hfield_size[hid])
+        n = bq.matvec(m1, nl)
+        dist = (local[..., 2, :] - h) * nl[..., 2, :] - s2[..., 0, :]
+        pos = p2 - n * (s2[..., 0:1, :] + 0.5 * dist[..., None, :])
+        return dist[:, None], pos[:, None], n[:, None]
+    return fn
+
+
+def _hfield_tangent_plane(m: Model, hid: int, p1, m1, xy):
+    """World-space tangent plane (anchor point, unit normal) of the
+    heightfield at the local footprint xy (P, 2, B)."""
+    h, nl = _hfield_height_normal(m, hid, xy, m.hfield_size[hid])
+    n = bq.matvec(m1, nl)
+    anchor_l = torch.cat([xy, h[..., None, :]], dim=-2)
+    return p1 + bq.matvec(m1, anchor_l), n
+
+
+def _make_hfield_ellipsoid(m: Model, hid: int):
+    """Heightfield vs ellipsoid on the local tangent plane with two support
+    refinements: the bilinear surface under the ellipsoid's deepest point,
+    then the analytic plane-ellipsoid form there. Exact where the terrain
+    is flat at the geom's footprint scale (the sine terrains' wavelengths
+    are far above the fly's geom sizes)."""
+
+    def fn(p1, m1, s1, p2, m2, s2):
+        xy = bq.matvec_t(m1, p2 - p1)[..., :2, :]
+        sp = p2
+        for _ in range(2):
+            _, n = _hfield_tangent_plane(m, hid, p1, m1, xy)
+            nloc = bq.matvec_t(m2, n)
+            sup_l = -(s2 * s2 * nloc) / torch.clamp(_norm(s2 * nloc),
+                                                    min=1e-12)
+            sp = p2 + bq.matvec(m2, sup_l)
+            xy = bq.matvec_t(m1, sp - p1)[..., :2, :]
+        anchor, n = _hfield_tangent_plane(m, hid, p1, m1, xy)
+        dd = _dot(n, sp - anchor)
+        pos = sp - 0.5 * dd * n
+        return dd[..., 0, :][:, None], pos[:, None], n[:, None]
+
+    return fn
+
+
+def _make_hfield_cylinder(m: Model, hid: int):
+    """Heightfield vs cylinder: the tangent plane at the footprint, the
+    plane-cylinder three-point rim manifold, then once more at the
+    deepest witness (the same regime as _make_hfield_ellipsoid)."""
+
+    def plane_pts(p1, m1, s1, p2, m2, s2, xy):
+        anchor, n = _hfield_tangent_plane(m, hid, p1, m1, xy)
+        frame = make_frame(n)                  # rows (n, t1, t2)
+        # a frame whose z column is n, as _plane_cylinder reads a plane's
+        fake_m = torch.stack([frame[..., 1, :, :], frame[..., 2, :, :],
+                              frame[..., 0, :, :]], dim=-2)
+        return _plane_cylinder(anchor, fake_m, s1, p2, m2, s2)
+
+    def fn(p1, m1, s1, p2, m2, s2):
+        xy = bq.matvec_t(m1, p2 - p1)[..., :2, :]
+        dd, pos, _ = plane_pts(p1, m1, s1, p2, m2, s2, xy)
+        deepest = torch.argmin(dd, dim=1, keepdim=True)      # (P, 1, B)
+        idx = deepest[:, :, None, :].expand(-1, -1, 3, -1)
+        psel = torch.gather(pos, 1, idx)[:, 0]               # (P, 3, B)
+        xy = bq.matvec_t(m1, psel - p1)[..., :2, :]
+        return plane_pts(p1, m1, s1, p2, m2, s2, xy)
+
+    return fn
+
+
+def _make_hfield_capsule(m: Model, hid: int):
+    sph = _make_hfield_sphere(m, hid)
+
+    def fn(p1, m1, s1, p2, m2, s2):
+        axis = m2[..., :, 2, :]
+        hl = s2[..., 1:2, :]
+        outs = [sph(p1, m1, s1, p2 + sgn * hl * axis, m2, _zero_r(s2))
+                for sgn in (1.0, -1.0)]
+        return tuple(torch.cat([o[i] for o in outs], dim=1)
+                     for i in range(3))
+    return fn
+
+
 _PAIR_FN = {
     (T.GEOM_PLANE, T.GEOM_SPHERE): _plane_sphere,
     (T.GEOM_PLANE, T.GEOM_CAPSULE): _plane_capsule,
@@ -182,14 +298,26 @@ _PAIR_FN = {
 }
 
 
-def _dispatch(t1: int, t2: int):
+# heightfield pair makers, by the other geom's type (heightfield 0, as in
+# the JAX package)
+_HFIELD_MAKERS = {
+    T.GEOM_SPHERE: _make_hfield_sphere,
+    T.GEOM_CAPSULE: _make_hfield_capsule,
+    T.GEOM_ELLIPSOID: _make_hfield_ellipsoid,
+    T.GEOM_CYLINDER: _make_hfield_cylinder,
+}
+
+
+def _dispatch(m: Model, t1: int, t2: int):
     fn = _PAIR_FN.get((t1, t2))
-    if fn is None:
-        raise NotImplementedError(
-            f"collision pair {(t1, t2)} is not ported yet (the box pairs "
-            "_plane_box, _sphere_box and _capsule_box and the heightfield "
-            "pairs are queued in ROADMAP.md A4)")
-    return fn
+    if fn is not None:
+        return fn
+    if t1 == T.GEOM_HFIELD and t2 in _HFIELD_MAKERS:
+        return _HFIELD_MAKERS[t2](m, 0)
+    raise NotImplementedError(
+        f"collision pair {(t1, t2)} is not ported yet (the box pairs "
+        "_plane_box, _sphere_box and _capsule_box are queued in ROADMAP.md "
+        "A4, with the rodent of A7)")
 
 
 def _pair_groups(m: Model):
@@ -245,7 +373,7 @@ def _narrowphase(m: Model, d: Data):
     nrm = d.qpos.new_zeros((ncon, 3, B))
     nrm[:, 2] = 1.0
     for (t1, t2), pair_idx in groups.items():
-        fn = _dispatch(t1, t2)
+        fn = _dispatch(m, t1, t2)
         k = PAIR_NCON[(t1, t2)]
         pg1 = m.ix(g1s[pair_idx])
         pg2 = m.ix(g2s[pair_idx])
@@ -502,7 +630,7 @@ def collision_update(m: Model, d: Data) -> Data:
         for tid, (key, kk) in enumerate(group_list):
             if not np.any(slot_typ[slots] == tid):
                 continue
-            dd, pp, nn = _dispatch(*key)(p1, M1, s1, p2, M2, s2)
+            dd, pp, nn = _dispatch(m, *key)(p1, M1, s1, p2, M2, s2)
             is_t = ltyp == tid
             for j in range(kk):
                 msk = is_t & (lsub == j)

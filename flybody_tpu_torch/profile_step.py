@@ -3,13 +3,16 @@
     python3 -m flybody_tpu_torch.profile_step [B] [TASK]
 
 TASK is a ``fly_envs`` factory (walk_on_ball by default, walk_imitation,
-flight_imitation). Prints (1) the host-clock time of each physics stage of
-one fresh and one update substep, each stage fenced by
-torch.cuda.synchronize, and of one batched ``env.reset`` (the auto-reset
-of a task that draws its initial states runs one every control step), and
-(2) a torch.profiler trace of one control step: device time by kernel, the
-device-busy total against the wall time, and the number of kernel
-launches. Needs a CUDA device.
+flight_imitation, vision_guided_flight). Prints (1) the host-clock time of
+each physics stage of one fresh and one update substep, each stage fenced
+by torch.cuda.synchronize, and of one batched ``env.reset`` (the auto-reset
+of a task that draws its initial states runs one every control step),
+(2) on a task with eyes, the eye render as a stage of its own (both eyes,
+run twice per control step: the step's obs and the auto-reset's fresh
+batch): its host-clock ms, its device time and launches, its peak device
+memory and its share of the control step, and (3) a torch.profiler trace
+of one control step: device time by kernel, the device-busy total against
+the wall time, and the number of kernel launches. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,6 +60,45 @@ def stage_times(m, d, col_update: bool, reps: int = 3) -> dict:
     return {k: sorted(v)[len(v) // 2] for k, v in out.items()}
 
 
+def device_rows(prof) -> list:
+    """The device-side entries of a torch.profiler run (kernels, copies,
+    memsets); the trace also puts each host op's range on the device
+    timeline under the op's name, which would count the same device time
+    twice."""
+    events = prof.key_averages()
+    host = {a.key for a in events
+            if a.device_type == torch.autograd.DeviceType.CPU}
+    return [a for a in events
+            if a.device_type == torch.autograd.DeviceType.CUDA
+            and a.key not in host]
+
+
+def eye_render(env, data) -> dict:
+    """The eye render of ``data`` (both eyes) as a stage: host-clock ms
+    (median of 3, fenced by syncs), device ms and launches of one render
+    (torch.profiler) and its peak device memory over what is held."""
+    from torch.profiler import ProfilerActivity, profile
+    task, m = env.task, env.model
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.render_eyes(m, data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        task.render_eyes(m, data)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return {"ms": 1e3 * sorted(times)[1],
+            "device_ms": sum(a.self_device_time_total for a in rows) / 1e3,
+            "launches": sum(a.count for a in rows),
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+
 def main(B: int = 4096, task: str = "walk_on_ball") -> None:
     env = getattr(fly_envs, task)()
     lo, hi = env.action_spec()
@@ -80,6 +122,14 @@ def main(B: int = 4096, task: str = "walk_on_ball") -> None:
     print(f"batched reset: {1e3 * sorted(resets)[1]:.2f} ms (median of 3; "
           f"runs every control step: "
           f"{not env.task.deterministic_init})")
+    render = None
+    if hasattr(env.task, "render_eyes"):
+        render = eye_render(env, state.data)
+        print(f"eye render (both eyes): {render['ms']:.2f} ms host clock "
+              f"(median of 3), device {render['device_ms']:.2f} ms in "
+              f"{render['launches']} kernels/copies, peak device memory "
+              f"{render['peak_gb']:.2f} GB over what is held; 2 per "
+              f"control step")
     for upd in (False, True):
         t = stage_times(m, state.data, upd)
         total = sum(t.values())
@@ -100,21 +150,18 @@ def main(B: int = 4096, task: str = "walk_on_ball") -> None:
         state = env.autoreset_step(state, mid)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-    # device-side entries only (kernels, copies, memsets); the trace also
-    # puts each host op's range on the device timeline under the op's name,
-    # which would count the same device time twice
-    events = prof.key_averages()
-    host = {a.key for a in events
-            if a.device_type == torch.autograd.DeviceType.CPU}
-    rows = [a for a in events
-            if a.device_type == torch.autograd.DeviceType.CUDA
-            and a.key not in host]
+    rows = device_rows(prof)
     busy = sum(a.self_device_time_total for a in rows) / 1e3     # ms
     launches = sum(a.count for a in rows)
     print(f"\ncontrol step: wall {1e3 * wall:.1f} ms unprofiled, "
           f"{1e3 * wall_prof:.1f} ms profiled; device busy {busy:.1f} ms "
           f"({100 * busy / (1e3 * wall):.1f} % of the unprofiled wall), "
           f"{launches} device kernels/copies")
+    if render is not None:
+        print(f"eye render share of the control step: host "
+              f"{100 * 2e-3 * render['ms'] / wall:.1f} % of the wall, device "
+              f"{100 * 2 * render['device_ms'] / busy:.1f} % of the busy "
+              f"time")
     print("top device time by kernel:")
     for a in sorted(rows, key=lambda a: -a.self_device_time_total)[:15]:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms {a.count:6d}x  "

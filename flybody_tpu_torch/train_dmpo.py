@@ -8,10 +8,11 @@ one device. Usage:
 It runs on "cuda" and raises without it unless ``--device cpu`` is given.
 ``--test`` runs a small smoke configuration printing stats. The flags are
 those of the JAX package's train_dmpo.py. The tasks walk_on_ball, template,
-walk_imitation and flight_imitation are ported; vision_guided_flight
-(ROADMAP A5), the rodent and humanoid tasks (A7), the intention and vision
-networks and their flags, multi-task training and decoder transfer (A6)
-raise NotImplementedError.
+walk_imitation, flight_imitation and vision_guided_flight are ported, and
+the plain and vision networks (``--network vision`` on
+vision_guided_flight); the rodent and humanoid tasks (ROADMAP A7), the
+intention network and its flags, multi-task training and decoder transfer
+(A6) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ TASKS = ("walk_on_ball", "template", "walk_imitation", "flight_imitation",
 # the ported tasks, by CLI name -> fly_envs factory
 PORTED = {"walk_on_ball": "walk_on_ball", "template": "template_task",
           "walk_imitation": "walk_imitation",
-          "flight_imitation": "flight_imitation"}
+          "flight_imitation": "flight_imitation",
+          "vision_guided_flight": "vision_guided_flight"}
 
 # flags read only by the intention network (ROADMAP A6), with their
 # defaults: any other value raises rather than being dropped
@@ -41,8 +43,8 @@ def make_env(name: str, device):
     from flybody_tpu_torch import fly_envs
     if name not in PORTED:
         raise NotImplementedError(
-            f"task {name!r} is not ported yet (ROADMAP A5: "
-            "vision_guided_flight; A7: rodent and humanoid)")
+            f"task {name!r} is not ported yet (ROADMAP A7: rodent and "
+            "humanoid)")
     return getattr(fly_envs, PORTED[name])(device=device)
 
 
@@ -86,7 +88,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--network", default="plain",
                    choices=("plain", "intention", "vision"),
-                   help="network factory mode (only 'plain' is ported)")
+                   help="network factory mode ('intention' is not ported)")
     p.add_argument("--intention-size", type=int,
                    default=A6_FLAGS["intention_size"])
     p.add_argument("--high-level-intention-size", type=int,

@@ -48,6 +48,8 @@ def test_import_leaves_jax_unloaded():
             "flybody_tpu_torch.tasks.pattern_generators, "
             "flybody_tpu_torch.tasks.task_utils, "
             "flybody_tpu_torch.tasks.template_task, "
+            "flybody_tpu_torch.tasks.vision_flight, "
+            "flybody_tpu_torch.tasks.arenas, flybody_tpu_torch.ops.raycast, "
             "flybody_tpu_torch.envs.wrappers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
