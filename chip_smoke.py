@@ -18,7 +18,11 @@ Phases (each prints its lines; any failure exits non-zero):
   5. kernels  solve_rows against its plain version on the card, at the
               main path's shapes: (a) inputs captured from the main path's
               final state, (b) random inputs; times of both, and of (a)
-              with the solver loop switched off (where the time goes)
+              with the solver loop switched off (where the time goes).
+              Every solve_rows hold (here and in phases 8-12) first
+              replays the plain version with the other restart decision
+              in an env where its restart test was a near tie (TIE) and
+              the kernel took the other path, and prints those replays
   6. stages   the stage split of the same solve on phase 5's fly inputs:
               upsolve_build_yd, upsolve_yd (on J^T of the same rows, held
               against upsolve_build_yd and against its plain version) and
@@ -47,8 +51,9 @@ Phases (each prints its lines; any failure exits non-zero):
               rollout's final state (B=256) as in phase 5; then three
               consecutive learner updates on the card against the same
               updates on the CPU: the losses of each, the last one's
-              clipped gradients and the parameters (float32; float64 sets
-              how far apart two float32 runs may be)
+              clipped gradients and the parameters, in float64 (held at
+              1e-9) and in float32 (each side's float32-to-float64
+              distance sets how far apart the two may be)
   9. imitation walk_imitation (the free fly on a floor, the JAX package's
               budgets: solve_rows at 176 rows, the kernel's wide instance)
               at B=4096, float32: reset from a seeded CUDA generator, one
@@ -96,7 +101,41 @@ Phases (each prints its lines; any failure exits non-zero):
               three learner updates with the vision networks on the card
               against the CPU as in phase 8, on the phase's observations
               at batch 256
- 12. registers, shared memory, resident blocks and warps per SM, local
+ 12. agents   the agent modes on the card, each through its entry point,
+              each run's solve_rows launches counted exactly: (a)
+              DMPOTrainer with the intention network on walk_imitation
+              (its ref_* task keys; configs/train_config_rodent_imitation
+              .yaml: encoder and decoder [1024, 1024], intention 60,
+              critic [1024]x3, batch 256, latent KL weight 1e-4), 256
+              envs, unroll 10, 2 iterations of 320 updates: 200 launches at
+              R 176, intention_kl finite, three learner updates card vs CPU
+              as in phase 8 (the encoder's and decoder's gradients too);
+              (b) transfer: (a)'s policy checkpointed, a trainer with
+              configs/train_config_bowl_transfer.yaml's two-level encoder
+              (high level 45, [512]x3, intention 60) and (a)'s decoder
+              restored from the checkpoint and frozen, one iteration: 100
+              launches, the decoder bit-identical to the donor's before and
+              after, the encoder moved; (c) MultiTaskDMPOTrainer over
+              walk_on_ball and walk_imitation (configs/train_config_two_
+              tasks.yaml's [512]x3 networks, batch 512), 128 envs per task,
+              unroll 10, 2 iterations: 400 launches, 200 at R 152 and 200
+              at R 176, learner_steps = 2 tables x updates_per_table x 2,
+              both tables filled, per-task metrics finite, the iteration
+              split; (d) make_evaluator on walk_imitation with episodes of
+              10 control steps, 8 episodes, (a)'s policy: 100 launches,
+              the five stats finite, mean length <= 10, ms per control
+              step; (e) utils.rendering.render_with_rewards_info on
+              walk_imitation for 5 control steps at 320x240 with the C++
+              rasterizer built by g++: 50 launches, every frame uint8 and
+              showing the fly, the four DeepMimic channels finite and each
+              over its weight (20, 1, 1, 1) in [0, 1], save_video's .npz
+              under the temp directory, the rasterizer's host ms per frame.
+              Each sub-phase, once its launches are counted, holds
+              solve_rows against its plain version as phase 8 does, on
+              the next substep of its own final state at its own batch:
+              R 176 at B=256 (a, b), R 152 and R 176 at B=128 (c), R 176
+              at B=8 (d) and B=1 (e)
+ 13. registers, shared memory, resident blocks and warps per SM, local
      (spill) bytes and apgd_iterate's active clusters of every kernel
      (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes,
      solve_rows at the vision shape), also as each kernel row's
@@ -104,7 +143,11 @@ Phases (each prints its lines; any failure exits non-zero):
      phase 3 or 6-7, "launches_train" in phase 8, solve_rows'
      "launches_imitation", "ms_imitation", "plain_ms_imitation" and
      "bound_ms_imitation" in phase 9 and the same "*_flight" keys in phase
-     10 and "*_vision" keys in phase 11; upsolve_yd's "*_imitation" and
+     10 and "*_vision" keys in phase 11, and "launches_intention",
+     "launches_transfer", "launches_multitask", "launches_eval" and
+     "launches_render" in phase 12, with "max_abs_err_intention",
+     "_transfer", "_multitask_walk_on_ball", "_multitask_walk_imitation",
+     "_eval" and "_render"; upsolve_yd's "*_imitation" and
      "*_flight" keys in phases 9-10, with its library yardstick's
      "library_ms_*"; upsolve_build_yd's and apgd_iterate's "*_imitation"
      and "*_flight" keys, and apgd_iterate's "loop_off_ms*"), the card
@@ -114,6 +157,7 @@ Phases (each prints its lines; any failure exits non-zero):
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -130,6 +174,16 @@ VISION_STEPS = 10
 # learner updates with the vision networks: the batch of phase 8
 VISION_BATCH = 256
 TEMPLATE_B = 8
+# phase 12: envs and control steps of the agent modes' runs (12a and 12b
+# 256 envs, 12c 128 per task, 12d 8 episodes, 12e one env), each run
+# training once its first rollout is in replay
+AGENT_ENVS = 256
+AGENT_UNROLL = 10
+AGENT_MIN_REPLAY = 2560
+MULTI_ENVS = 128
+EVAL_STEPS = 10
+EVAL_EPISODES = 8
+RENDER_STEPS = 5
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth
@@ -185,13 +239,37 @@ TOL_ADMM_ENV = 1e-4
 # second step on it depends on the gradients' magnitudes, and the
 # gradients themselves are compared after the global-norm clip. A step
 # that is wrong moves the parameters by O(lr) = 1e-4 per entry, ~2e-3 of
-# their norm. Raised by F64_FACTOR times the CPU float32 run's distance
-# from the CPU float64 run, as above. The parameter change alone (updated
-# minus initial) is held at 1e-2: a wrong step is off by O(1) of it.
+# their norm. The same updates also run in float64 on the card and on the
+# CPU, and those two are held at TOL_F64, orders of magnitude above
+# float64 rounding: the card computes the same function. So the two
+# float32 runs differ only by their own roundings, and the float32 bound
+# is raised to F64_FACTOR times the larger of the CPU's and the card's
+# float32-to-float64 distances. The card's can be the larger: on a vision
+# batch whose third update is ill-conditioned (the stddev KL's dual near
+# 1e3 pulls on online minus target scales ~lr apart) the card's float32
+# gradients sat several times further from its float64 ones than the
+# CPU's (PERF.md section 6, PR 10). A wrong learner is wrong in float64
+# too. The parameter change alone (updated minus initial) is held at
+# 1e-2: a wrong step is off by O(1) of it.
 TOL_UPDATE = 1e-4
 TOL_DELTA = 1e-2
+TOL_F64 = 1e-9
 UPDATE_STEPS = 3
 TRAIN_ITERATIONS = 2
+
+# APGD's restart test r = sum(g (z_new - z)) > 0 is its one discontinuous
+# decision. Where |r| is a small share of sum |g (z_new - z)|, the kernel's
+# summation order can decide it otherwise than the plain version's (the
+# two runs' iterates drift apart by rounding, so by the last iterations a
+# share of a few 1e-3 can flip); the env then takes another, equally valid
+# momentum path and its f ends up to ~1e-3 of the batch's force scale away,
+# which at a small batch is most of qacc's bound. Such a tie is replayed:
+# the plain version runs again with the other decision at that iteration,
+# and the env is held against the replay, under the same bounds, if the
+# replay is nearer the kernel. A wrong kernel is off in envs without a
+# near tie, or stays off after the replay. Each hold prints its replays.
+TIE = 1e-2
+TIE_TRIES = 3
 
 ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
             "dinv", "qacc_smooth", "qvel", "kcoef", "bcoef", "posr")
@@ -317,10 +395,12 @@ def param_vector(*modules):
                       for m in modules for p in m.parameters()])
 
 
-def train_phase(env, cfg, iterations, zero_counts, counts, smi):
-    """Phase 8: DMPOTrainer on ``env`` for ``iterations``; fails on any
-    gate. Returns every kernel's launches in the run, the learner and the
-    final LoopState."""
+def train_phase(env, cfg, iterations, zero_counts, counts, smi,
+                label="train"):
+    """Phase 8 (and 12a): DMPOTrainer on ``env`` for ``iterations``; fails
+    on any gate. Returns every kernel's launches in the run, the trainer,
+    the final LoopState, the last metrics and the seconds of each
+    iteration's rollout and updates."""
     import torch
     from flybody_tpu_torch.agents.train import DMPOTrainer
     trainer = DMPOTrainer(env, cfg)
@@ -353,55 +433,98 @@ def train_phase(env, cfg, iterations, zero_counts, counts, smi):
     n_updates = iterations * trainer.updates_per_iter
     n_env_steps = iterations * cfg.num_envs * cfg.unroll_length
     upd_s = [a - b for a, b in zip(iter_s, roll_s)]
-    print(f"train: launches {launched} (expected solve_rows "
+    print(f"{label}: launches {launched} (expected solve_rows "
           f"{n_env_steps // cfg.num_envs * env.n_substeps}, the others 0)",
           flush=True)
     if launched != dict({k: 0 for k in launched},
                         solve_rows=n_env_steps // cfg.num_envs
                         * env.n_substeps):
-        fail("train: solve_rows was not launched once per substep")
-    print(f"train: learner_steps {st.steps} (expected {n_updates}), replay "
+        fail(f"{label}: solve_rows was not launched once per substep")
+    print(f"{label}: learner_steps {st.steps} (expected {n_updates}), replay "
           f"size {loop.replay.size} (expected {n_env_steps}), target copies "
           f"policy {st.target_policy_copies} critic "
           f"{st.target_critic_copies}", flush=True)
     if st.steps != n_updates or loop.replay.size != n_env_steps:
-        fail("train: wrong number of updates or transitions")
+        fail(f"{label}: wrong number of updates or transitions")
     periods = (cfg.dmpo.target_policy_update_period,
                cfg.dmpo.target_critic_update_period)
     if (st.target_policy_copies, st.target_critic_copies) != tuple(
             n_updates // p for p in periods) or min(
                 n_updates // p for p in periods) < 1:
-        fail("train: the target copies did not fire as scheduled")
+        fail(f"{label}: the target copies did not fire as scheduled")
     bad = [k for k, v in metrics.items()
            if not bool(torch.isfinite(torch.as_tensor(v)).all())]
     if bad:
-        fail(f"train: non-finite stats {bad}")
+        fail(f"{label}: non-finite stats {bad}")
     moved = {k: rel_norm(param_vector(getattr(st, k)), v)
              for k, v in start.items()}
-    print(f"train: parameters moved from init by (relative norm) "
+    print(f"{label}: parameters moved from init by (relative norm) "
           f"{json.dumps({k: float(f'{v:.3e}') for k, v in moved.items()})}; "
           f"critic_loss {float(metrics['critic_loss']):.4f}, "
           f"policy_loss_total {float(metrics['policy_loss_total']):.4f}, "
           f"mean_reward {float(metrics['mean_reward']):.4f}", flush=True)
     if not min(moved.values()) > 0:
-        fail("train: a network or its target did not move")
-    print(f"train: {iterations} iterations of {cfg.num_envs} envs x "
+        fail(f"{label}: a network or its target did not move")
+    print(f"{label}: {iterations} iterations of {cfg.num_envs} envs x "
           f"{cfg.unroll_length} control steps + {trainer.updates_per_iter} "
           f"updates; rollout s per iteration "
           f"{[round(x, 3) for x in roll_s]}, update s per iteration "
           f"{[round(x, 3) for x in upd_s]}; actor "
           f"{n_env_steps / sum(roll_s):.1f} env-steps/s, learner "
           f"{n_updates / sum(upd_s):.1f} updates/s | {smi}", flush=True)
-    return launched, trainer.learner, loop
+    return launched, trainer, loop, metrics, (roll_s, upd_s)
+
+
+def replay_ties(SK, tree, args, kwa, got, want, trace):
+    """``want`` (solve_rows_reference's f, v, qfrc, dqacc, with its restart
+    ``trace``) with each env whose restart test had a near tie (|r| <= TIE
+    of sum |g dz|) replaced by a replay of the plain version that takes the
+    other decision at one of its TIE_TRIES nearest ties, where that replay
+    is nearer the kernel's ``got``. Returns (want, [(env, iteration,
+    |r| / sum |g dz|, error before, error after)]); an env's error is
+    max |got - want| over f, qfrc and dqacc, each over its batch scale."""
+    import torch
+    r = torch.cat([t[0] for t in trace])             # (iterations, B)
+    margin = r.abs() / torch.cat([t[1] for t in trace]).clamp_min(1e-30)
+    want = list(want)
+    scale = [w.abs().max().clamp_min(1e-30) for w in want]
+
+    def env_err(w):
+        return torch.stack([(got[k] - w[k]).abs().amax(0) / scale[k]
+                            for k in (0, 2, 3)]).amax(0)
+
+    err = env_err(want)
+    order = torch.where(margin <= TIE, margin,
+                        torch.full_like(margin, float("inf"))).argsort(0)
+    replayed = []
+    for t in range(min(TIE_TRIES, margin.shape[0])):
+        it = order[t]                                 # (B,) iteration
+        cand = margin.gather(0, it[None])[0] <= TIE
+        if not bool(cand.any()):
+            break
+        flip = torch.zeros_like(margin, dtype=torch.bool)
+        flip.scatter_(0, it[None], cand[None])
+        alt = SK.solve_rows_reference(tree, **args, **kwa, flip=flip)
+        err_alt = env_err(alt)
+        take = cand & (err_alt < err)
+        for e in take.nonzero()[:, 0].tolist():
+            i = int(it[e])
+            replayed.append((e, i, float(margin[i, e]), float(err[e]),
+                             float(err_alt[e])))
+        for k in range(4):
+            want[k] = torch.where(take, alt[k], want[k])
+        err = torch.where(take, err_alt, err)
+    return tuple(want), replayed
 
 
 def update_check(learner, cfg, seed: int = 1, obs_pool=None,
                  tag: str = "update") -> None:
     """Phase 8b: UPDATE_STEPS learner updates on the card against the same
-    updates on the CPU, from the same params (the port's init moved with
-    .to()), the same numpy-seeded batches at the trainer's shapes and the
-    same action normals. The batches' obs are standard normals, or rows
-    of ``obs_pool`` (n, obs_size) drawn by the same seed."""
+    updates on the CPU, each in float32 and in float64, from the same
+    params (the port's init moved with .to()), the same numpy-seeded
+    batches at the trainer's shapes and the same action normals. The
+    batches' obs are standard normals, or rows of ``obs_pool`` (n,
+    obs_size) drawn by the same seed."""
     import numpy as np
     import torch
     from flybody_tpu_torch.agents.dmpo import DMPOLearner, Transition
@@ -420,21 +543,22 @@ def update_check(learner, cfg, seed: int = 1, obs_pool=None,
     names = ("policy", "critic", "target_policy", "target_critic",
              "dual_params")
     groups = ("policy", "critic", "dual_params")
-    start = param_vector(*(getattr(card, g) for g in groups))
     init = {k: copy.deepcopy(getattr(card, k).state_dict()) for k in names}
     runs = {}
-    for label, dev, dt in (("card", learner.device, torch.float32),
-                           ("cpu32", torch.device("cpu"), torch.float32),
-                           ("cpu64", torch.device("cpu"), torch.float64)):
-        if label == "card":
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    for label, dev, dt in (("card32", learner.device, f32),
+                           ("card64", learner.device, f64),
+                           ("cpu32", cpu, f32), ("cpu64", cpu, f64)):
+        if label == "card32":
             lrn, st = learner, card
         else:
-            lrn = DMPOLearner(copy.deepcopy(learner.policy).to("cpu", dt),
-                              copy.deepcopy(learner.critic).to("cpu", dt),
+            lrn = DMPOLearner(copy.deepcopy(learner.policy).to(dev, dt),
+                              copy.deepcopy(learner.critic).to(dev, dt),
                               act, obs, cfg)
             st = lrn.init(torch.Generator().manual_seed(seed + 1))
             for k in names:
                 getattr(st, k).load_state_dict(init[k])
+        first = param_vector(*(getattr(st, g) for g in groups))
         out = {}
         for i, (batch, eps) in enumerate(steps):
             tb = Transition(**{k: torch.as_tensor(v, dtype=dt, device=dev)
@@ -443,27 +567,35 @@ def update_check(learner, cfg, seed: int = 1, obs_pool=None,
                                                            device=dev))
             for k in ("critic_loss", "policy_loss_total"):
                 out[f"{k} {i + 1}"] = float(stats[k])
-        # the last step's gradients, as the optimizers took them
-        for g in groups:
+        # the last step's gradients, as the optimizers took them (an
+        # intention policy's encoder and decoder also apart)
+        parts = [(g, getattr(st, g)) for g in groups] + [
+            (f"policy.{sub}", getattr(st.policy, sub))
+            for sub in ("encoder", "decoder") if hasattr(st.policy, sub)]
+        for g, module in parts:
             out[f"{g} grads"] = torch.cat([
                 p.grad.double().cpu().reshape(-1)
-                for p in getattr(st, g).parameters()])
+                for p in module.parameters()])
         out["params"] = param_vector(*(getattr(st, g) for g in groups))
-        out["params - init"] = out["params"] - start
+        out["params - init"] = out["params"] - first
         runs[label] = out
         if dev.type == "cuda":
             torch.cuda.synchronize()
-    card, c32, c64 = (runs[k] for k in ("card", "cpu32", "cpu64"))
-    for name in card:
-        dist = rel_norm if torch.is_tensor(card[name]) else (
+    for name in runs["card32"]:
+        dist = rel_norm if torch.is_tensor(runs["card32"][name]) else (
             lambda a, b: abs(a - b) / max(abs(b), 1e-30))
+        d = {k: dist(runs[a][name], runs[b][name]) for k, (a, b) in {
+            "32": ("card32", "cpu32"), "64": ("card64", "cpu64"),
+            "card": ("card32", "card64"), "cpu": ("cpu32", "cpu64")}.items()}
         tol = TOL_DELTA if name == "params - init" else TOL_UPDATE
-        rel, rel32 = dist(card[name], c32[name]), dist(c32[name], c64[name])
-        bound = max(tol, F64_FACTOR * rel32)
-        print(f"{tag}: {name:22s} card f32 vs cpu f32 {rel:.3e} (cpu f32 "
-              f"vs f64 {rel32:.3e}; tol {bound:.3g})", flush=True)
-        if not rel <= bound:
-            fail(f"{tag} {name}: {rel:.3e} > {bound:.3g}")
+        bound = max(tol, F64_FACTOR * max(d["card"], d["cpu"]))
+        print(f"{tag}: {name:24s} card f32 vs cpu f32 {d['32']:.3e} (f32 vs "
+              f"f64: cpu {d['cpu']:.3e}, card {d['card']:.3e}; tol "
+              f"{bound:.3g}); card f64 vs cpu f64 {d['64']:.3e}", flush=True)
+        if not d["64"] <= TOL_F64:
+            fail(f"{tag} {name} in float64: {d['64']:.3e} > {TOL_F64:g}")
+        if not d["32"] <= bound:
+            fail(f"{tag} {name}: {d['32']:.3e} > {bound:.3g}")
 
 
 def main() -> int:
@@ -634,19 +766,31 @@ def main() -> int:
         outputs and the largest abs error."""
         n0 = SK.solve_rows.launches
         got = SK.solve_rows(tree, **args, **kwa)
-        want = SK.solve_rows_reference(tree, **args, **kwa)
+        trace = []
+        want = SK.solve_rows_reference(tree, **args, **kwa, trace=trace)
         want64 = SK.solve_rows_reference(
             tree, **{k: as64(x) for k, x in args.items()}, **kwa)
         torch.cuda.synchronize()
         if SK.solve_rows.launches != n0 + 1:
             fail("the kernel wrapper did not launch")
-        err = hold(label, ("f", "v", "qfrc", "dqacc"), got, want, want64)
+        # the bounds' float64 raise from the plain version as it decided
+        rel32 = [max_rel(w, w64) for w, w64 in zip(want, want64)]
         qs = args["qacc_smooth"]
-        qp, q64 = qs + want[3], qs.double() + want64[3]
-        rel, rel32 = rel_norm(qs + got[3], qp), rel_norm(qp, q64)
-        bound = max(TOL_QACC, F64_FACTOR * rel32)
+        q32 = rel_norm(qs + want[3], qs.double() + want64[3])
+        want, replayed = replay_ties(SK, tree, args, kwa, got, want, trace)
+        shown = [(e, i, *(float(f"{x:.3g}") for x in t))
+                 for e, i, *t in replayed[:8]]
+        print(f"  {label} restart ties replayed in {len(replayed)} envs "
+              f"(env, iteration, |r| / sum |g dz|, error before, after; TIE "
+              f"{TIE:g}): {shown}{' ...' if len(replayed) > 8 else ''}",
+              flush=True)
+        err = hold(label, ("f", "v", "qfrc", "dqacc"), got, want, want64,
+                   rel32=rel32)
+        qp = qs + want[3]
+        rel = rel_norm(qs + got[3], qp)
+        bound = max(TOL_QACC, F64_FACTOR * q32)
         print(f"  {label} qacc   rel_norm {rel:.3e} (plain f32 vs f64 "
-              f"{rel32:.3e}; tol {bound:.3g})", flush=True)
+              f"{q32:.3e}; tol {bound:.3g})", flush=True)
         if not rel <= bound:
             fail(f"{label} qacc rel_norm {rel:.3e} > {bound:.3g}")
         return got, err
@@ -927,8 +1071,9 @@ def main() -> int:
                          samples_per_insert=32.0,
                          dmpo=DMPOConfig(batch_size=256, n_step=5,
                                          num_samples=20))
-    train_launched, learner, loop = train_phase(
-        env, tcfg, TRAIN_ITERATIONS, zero_counts, counts, smi)
+    train_launched, trainer_t, loop = train_phase(
+        env, tcfg, TRAIN_ITERATIONS, zero_counts, counts, smi)[:3]
+    learner = trainer_t.learner
     # solve_rows on the training path's own inputs: the next substep of the
     # rollout's final state, at the rollout's batch
     d_t = F.smooth_forward(m, loop.env_states.data)
@@ -1278,7 +1423,302 @@ def main() -> int:
     update_check(learner_v, vcfg, obs_pool=pool, tag="vision update")
     del pool, learner_v
 
-    # ---- 12. result ------------------------------------------------------
+    # ---- 12. agents ------------------------------------------------------
+    import shutil
+    import tempfile
+    from flybody_tpu_torch.agents.actors import canonical_to_real, flat_obs
+    from flybody_tpu_torch.agents.evaluator import make_evaluator, save_video
+    from flybody_tpu_torch.agents.multitask import MultiTaskDMPOTrainer
+    from flybody_tpu_torch.agents.train import DMPOTrainer
+    from flybody_tpu_torch.io import checkpoint as ckpt
+    from flybody_tpu_torch.utils import rendering
+
+    def expect(label, want):
+        """Fail unless this sub-phase launched solve_rows exactly ``want``
+        times and no other kernel."""
+        got = counts()
+        print(f"{label}: launches {got} (expected solve_rows {want}, the "
+              f"others 0)", flush=True)
+        if got != dict({k: 0 for k in wrappers}, solve_rows=want):
+            fail(f"{label}: solve_rows was not launched {want} times")
+        return want
+
+    def rows_of(model) -> int:
+        return SF.fused_layout(model, C.efc_meta(model))["R"]
+
+    R_wob, R_wi = rows_of(m), rows_of(mi)
+    agent_s = {}
+
+    def hold_final(label, model, data, want_R):
+        """solve_rows against its plain version on the next substep of a
+        sub-phase's final state, at that sub-phase's batch (as phase 8
+        does); B1's row gains ``max_abs_err_<label>``. Its one launch
+        comes after the sub-phase's count was read."""
+        d_h = F.smooth_forward(model, data)
+        prob = SF.assemble(model, d_h)
+        R_h, B_h = prob["args"]["u6"].shape[0], d_h.qacc_smooth.shape[-1]
+        print(f"{label}: solve_rows on the final state, R {R_h}, B={B_h}",
+              flush=True)
+        if R_h != want_R:
+            fail(f"{label}: {R_h} rows, expected {want_R}")
+        rows["solve_rows"][f"max_abs_err_{label}"] = check_rows(
+            label, model.tree, prob["args"], prob["kw"])[1]
+
+    def recording(env_x, name, last):
+        """``env_x.<name>`` (a step function) on the instance, keeping the
+        state it returned last in ``last["state"]``; ``del env_x.<name>``
+        restores the method."""
+        step = getattr(env_x, name)
+
+        def wrapped(*args, **kwargs):
+            last["state"] = out = step(*args, **kwargs)
+            return out
+        setattr(env_x, name, wrapped)
+
+    # 12a: the intention network on walk_imitation at the published widths
+    # of configs/train_config_rodent_imitation.yaml
+    t12 = time.perf_counter()
+    acfg = TrainerConfig(
+        num_envs=AGENT_ENVS, unroll_length=AGENT_UNROLL,
+        replay_capacity=1_000_000, min_replay_size=AGENT_MIN_REPLAY,
+        samples_per_insert=32.0, network="intention", intention_size=60,
+        encoder_layers=(1024, 1024), decoder_layers=(1024, 1024),
+        critic_layers=(1024, 1024, 1024),
+        dmpo=DMPOConfig(batch_size=256, n_step=5, num_samples=20,
+                        intention_kl_weight=1e-4))
+    launched_a, tr_a, loop_a, metrics_a, (roll_a, upd_a) = train_phase(
+        env_i, acfg, TRAIN_ITERATIONS, zero_counts, counts, smi,
+        label="intention")
+    n_a = TRAIN_ITERATIONS * AGENT_ENVS * AGENT_UNROLL
+    kl = metrics_a.get("intention_kl")
+    if kl is None or not bool(torch.isfinite(kl)):
+        fail("intention: intention_kl missing or not finite")
+    n_upd_a = TRAIN_ITERATIONS * tr_a.updates_per_iter
+    print(f"intention: task keys {list(tr_a.obs_keys[:2])}, task prefix "
+          f"{tr_a.task_obs_size} of {tr_a.obs_size} obs floats, solve_rows "
+          f"at R {R_wi}; intention_kl {float(kl):.4e}; rollout "
+          f"{sum(roll_a):.3f} s ({n_a / sum(roll_a):.1f} env-steps/s), "
+          f"{1e3 * sum(upd_a) / n_upd_a:.2f} ms per update at the "
+          f"1024-wide nets ({n_upd_a} updates) | {smi}", flush=True)
+    hold_final("intention", mi, loop_a.env_states.data, R_wi)
+    update_check(tr_a.learner, acfg.dmpo, tag="intention update")
+    policy_a, keys_a = loop_a.train.policy, tr_a.obs_keys
+    rows["solve_rows"]["launches_intention"] = launched_a["solve_rows"]
+    donor_dir = tempfile.mkdtemp(prefix="chip_smoke_donor_")
+    donor_path = ckpt.save(donor_dir, {"train": loop_a.train})
+    del loop_a, metrics_a
+    agent_s["intention"] = time.perf_counter() - t12
+
+    # 12b: transfer: configs/train_config_bowl_transfer.yaml's two-level
+    # encoder, the donor's decoder restored from its checkpoint and frozen
+    t12 = time.perf_counter()
+    bcfg = dataclasses.replace(
+        acfg, high_level_intention_size=45, encoder_layers=(512, 512, 512),
+        critic_layers=(1024, 1024, 512, 512, 512), freeze_decoder=True,
+        dmpo=dataclasses.replace(acfg.dmpo, discount=0.97))
+    tr_b = DMPOTrainer(env_i, bcfg)
+    loop_b = tr_b.init(1)
+    donor = ckpt.restore_policy_params(donor_path)
+    shutil.rmtree(donor_dir)
+    tr_b.restore_decoder(loop_b.train, donor)
+    dec_keys = [k for k in donor if k.startswith("decoder.")]
+
+    def decoder_is_donor(when):
+        for net in ("policy", "target_policy"):
+            sd = getattr(loop_b.train, net).state_dict()
+            same = all(torch.equal(sd[k].cpu(), donor[k]) for k in dec_keys)
+            print(f"transfer: {net} decoder ({len(dec_keys)} tensors) "
+                  f"bit-identical to the donor's {when}: {same}", flush=True)
+            if not same:
+                fail(f"transfer: the {net} decoder differs from the donor's "
+                     f"{when}")
+
+    decoder_is_donor("before training")
+    enc0 = param_vector(loop_b.train.policy.encoder)
+    torch.cuda.synchronize()
+    zero_counts()
+    loop_b, metrics_b = tr_b.train_iteration(loop_b)
+    torch.cuda.synchronize()
+    launched_b = expect("transfer", AGENT_UNROLL * env_i.n_substeps)
+    decoder_is_donor("after one iteration")
+    moved_b = rel_norm(param_vector(loop_b.train.policy.encoder), enc0)
+    print(f"transfer: learner_steps {loop_b.train.steps} (expected "
+          f"{tr_b.updates_per_iter}); the encoder moved by {moved_b:.3e} "
+          f"(relative norm); intention_kl "
+          f"{float(metrics_b['intention_kl']):.4e}", flush=True)
+    if loop_b.train.steps != tr_b.updates_per_iter or not moved_b > 0:
+        fail("transfer: the encoder did not train")
+    hold_final("transfer", mi, loop_b.env_states.data, R_wi)
+    rows["solve_rows"]["launches_transfer"] = launched_b
+    del tr_b, loop_b, metrics_b, donor
+    agent_s["transfer"] = time.perf_counter() - t12
+
+    # 12c: multi-task over walk_on_ball and walk_imitation (one 59-dim
+    # action space) with configs/train_config_two_tasks.yaml's networks
+    t12 = time.perf_counter()
+    ccfg = TrainerConfig(
+        unroll_length=AGENT_UNROLL, replay_capacity=1_000_000,
+        min_replay_size=AGENT_MIN_REPLAY, samples_per_insert=32.0,
+        policy_layers=(512, 512, 512), critic_layers=(512, 512, 512),
+        dmpo=DMPOConfig(batch_size=512, n_step=5, num_samples=20))
+    tr_c = MultiTaskDMPOTrainer(
+        {"walk_on_ball": env, "walk_imitation": env_i},
+        {"walk_on_ball": MULTI_ENVS, "walk_imitation": MULTI_ENVS}, ccfg)
+    per_task = {k: 0 for k in tr_c.names}
+    roll_c = {k: [] for k in tr_c.names}
+
+    def counted(name, fn):
+        def rollout(*args):
+            n0 = SK.solve_rows.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            roll_c[name].append(time.perf_counter() - t)
+            per_task[name] += SK.solve_rows.launches - n0
+            return out
+        return rollout
+
+    tr_c.rollout_fns = {k: counted(k, f) for k, f in tr_c.rollout_fns.items()}
+    loop_c = tr_c.init(2)
+    torch.cuda.synchronize()
+    zero_counts()
+    iter_c = []
+    for _ in range(TRAIN_ITERATIONS):
+        t = time.perf_counter()
+        loop_c, metrics_c = tr_c.train_iteration(loop_c)
+        torch.cuda.synchronize()
+        iter_c.append(time.perf_counter() - t)
+    want_c = {k: TRAIN_ITERATIONS * AGENT_UNROLL * tr_c.envs[k].n_substeps
+              for k in tr_c.names}
+    launched_c = expect("multitask", sum(want_c.values()))
+    print(f"multitask: solve_rows launches by task {per_task} (expected "
+          f"{want_c}) at R {{'walk_on_ball': {R_wob}, 'walk_imitation': "
+          f"{R_wi}}}", flush=True)
+    if per_task != want_c or (R_wob, R_wi) != (152, 176):
+        fail("multitask: both B1 instances did not run their share")
+    want_steps = len(tr_c.names) * tr_c.updates_per_table * TRAIN_ITERATIONS
+    sizes = {k: loop_c.replays[k].size for k in tr_c.names}
+    print(f"multitask: learner_steps {loop_c.train.steps} (expected "
+          f"{want_steps}), replay tables {sizes} of "
+          f"{loop_c.replays[tr_c.names[0]].capacity}", flush=True)
+    if loop_c.train.steps != want_steps or min(sizes.values()) != \
+            TRAIN_ITERATIONS * MULTI_ENVS * AGENT_UNROLL:
+        fail("multitask: wrong number of updates or transitions")
+    bad = [k for k, v in metrics_c.items() if "/" in k and not bool(
+        torch.isfinite(torch.as_tensor(v)).all())]
+    if bad:
+        fail(f"multitask: non-finite per-task metrics {bad}")
+    for k, (model_k, R_k) in (("walk_on_ball", (m, R_wob)),
+                              ("walk_imitation", (mi, R_wi))):
+        hold_final(f"multitask_{k}", model_k, loop_c.env_states[k].data, R_k)
+    for i, total in enumerate(iter_c):
+        rolls = {k: round(v[i], 3) for k, v in roll_c.items()}
+        print(f"multitask: iteration {i + 1} {total:.3f} s = rollouts "
+              f"{rolls} s + updates {total - sum(rolls.values()):.3f} s "
+              f"({len(tr_c.names) * tr_c.updates_per_table} updates) | "
+              f"{smi}", flush=True)
+    rows["solve_rows"]["launches_multitask"] = launched_c
+    del tr_c, loop_c, metrics_c
+    agent_s["multitask"] = time.perf_counter() - t12
+
+    # 12d: the evaluator on walk_imitation, episodes of 10 control steps
+    t12 = time.perf_counter()
+    env_e = walk_imitation(time_limit=EVAL_STEPS * env_i.task.ctrl_dt)
+    if env_e.episode_steps != EVAL_STEPS:
+        fail(f"evaluator: episodes of {env_e.episode_steps} control steps")
+    evaluate = make_evaluator(env_e, EVAL_EPISODES, obs_keys=keys_a)
+    last_e = {}
+    recording(env_e, "step", last_e)
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    stats_e = evaluate(policy_a, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    dt_e = time.perf_counter() - t
+    launched_e = expect("evaluator", EVAL_STEPS * env_e.n_substeps)
+    stats_e = {k: float(v) for k, v in stats_e.items()}
+    print(f"evaluator: {EVAL_EPISODES} episodes of {EVAL_STEPS} control "
+          f"steps in {dt_e:.3f} s, the reset included ("
+          f"{1e3 * dt_e / EVAL_STEPS:.1f} ms per control step); "
+          f"{json.dumps(stats_e)} | {smi}", flush=True)
+    if not all(np.isfinite(v) for v in stats_e.values()) or not \
+            stats_e["eval_episode_length_mean"] <= EVAL_STEPS:
+        fail("evaluator: stats not finite or episodes too long")
+    hold_final("eval", env_e.model, last_e["state"].data, R_wi)
+    rows["solve_rows"]["launches_eval"] = launched_e
+    del env_e, evaluate
+    agent_s["evaluator"] = time.perf_counter() - t12
+
+    # 12e: rendered reward channels of 12a's policy on walk_imitation
+    t12 = time.perf_counter()
+    t = time.perf_counter()
+    lib = rendering.build()
+    print(f"render: rasterizer {os.path.relpath(lib, ROOT)} built in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    lo_i, hi_i = (torch.as_tensor(x, dtype=f32, device=dev)
+                  for x in env_i.action_spec())
+
+    def policy_fn(obs):
+        return canonical_to_real(policy_a(flat_obs(obs, keys_a)).mode(),
+                                 lo_i, hi_i)
+
+    last_r = {}
+    recording(env_i, "autoreset_step", last_r)
+    zero_counts()
+    t = time.perf_counter()
+    frames, resets, channels = rendering.render_with_rewards_info(
+        env_i, policy_fn, torch.Generator(dev).manual_seed(0),
+        n_steps=RENDER_STEPS, width=320, height=240)
+    dt_r = time.perf_counter() - t
+    launched_r = expect("render", RENDER_STEPS * env_i.n_substeps)
+    del env_i.autoreset_step
+    hold_final("render", mi, last_r["state"].data, R_wi)
+    weights = {"com": 20.0, "qvel": 1.0, "end_effectors": 1.0,
+               "joints": 1.0}
+    for i, (frame, ch) in enumerate(zip(frames, channels)):
+        if frame.shape != (240, 320, 3) or frame.dtype != np.uint8:
+            fail(f"render: frame {i} is {frame.shape} {frame.dtype}")
+        px = frame.reshape(-1, 3)
+        sky = np.all(px == rendering.SKY, axis=1)
+        floor = np.all(px == frame[-1, 160], axis=1)
+        fly = int((~sky & ~floor).sum())
+        colours = len(np.unique(px, axis=0))
+        print(f"render: frame {i} {colours} colours, {int(sky.sum())} sky, "
+              f"{int(floor.sum())} floor, {fly} fly pixels; channels "
+              f"{json.dumps({k: float(f'{v:.4e}') for k, v in ch.items()})}",
+              flush=True)
+        if fly < 50 or colours < 3:
+            fail(f"render: frame {i} does not show the fly")
+        # each DeepMimic factor is exp(-d) in [0, 1] times its weight
+        # (20, 1, 1, 1: walk_imitation's)
+        if sorted(ch) != sorted(weights) or not all(
+                np.isfinite(v) and 0.0 <= v / weights[k] <= 1.0
+                for k, v in ch.items()):
+            fail(f"render: reward channels {ch}")
+    cam = rendering.track_camera(np.zeros(3))
+    st_r = env_i.reset(1)
+    t = time.perf_counter()
+    for _ in range(RENDER_STEPS):
+        rendering.render_frame(env_i.model, st_r.data, *cam)
+    ms_frame = 1e3 * (time.perf_counter() - t) / RENDER_STEPS
+    video = save_video(frames, os.path.join(tempfile.gettempdir(),
+                                            "chip_smoke_eval.mp4"))
+    print(f"render: {RENDER_STEPS} control steps with frames and channels "
+          f"in {dt_r:.3f} s; the rasterizer {ms_frame:.1f} host ms per "
+          f"320x240 frame (the copy to the host included); episode ends at "
+          f"{resets}; video {video} | {smi}", flush=True)
+    if not video.endswith(".npz") or not np.array_equal(
+            np.load(video)["frames"], np.stack(frames)):
+        fail("render: save_video did not write the frames to an .npz")
+    os.remove(video)
+    rows["solve_rows"]["launches_render"] = launched_r
+    del frames, st_r, policy_a, last_r, last_e
+    agent_s["render"] = time.perf_counter() - t12
+    walls = {k: round(v, 1) for k, v in agent_s.items()}
+    print(f"agents: wall s {json.dumps(walls)} | {smi}", flush=True)
+
+    # ---- 13. result ------------------------------------------------------
     shapes = {"": (m.nv, R, m.tree), "_imitation": (mi.nv, R_i, mi.tree),
               "_flight": (mf.nv, R_f, mf.tree)}
     occupancy = [(name, at, SK.kernel_info(name, nv_, R_, tr.nM,

@@ -52,26 +52,47 @@ def init_rollout_tail(cfg: RolloutConfig, n_env: int, obs_size: int,
                 episode_return=z(n, n_env))
 
 
+def flat_obs(obs: dict, obs_keys=None, obs_pad: int = 0) -> torch.Tensor:
+    """A batch of observation dicts as (B, n + obs_pad) rows in
+    ``obs_keys`` order (sorted by default), zero-padded by ``obs_pad``
+    (multi-task training pads each task up to the union size: the
+    positional analog of the reference's SameObs normalization,
+    rodent_tasks_modified.py:31-39)."""
+    x = batch_concat(obs, keys=obs_keys, num_batch_dims=1)
+    if obs_pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (obs_pad,))], dim=-1)
+    return x
+
+
+def actor_dist(policy, obs_flat: torch.Tensor, generator):
+    """The policy's action distribution on the actor path: an intention
+    policy decodes a latent drawn from ``generator`` (its mean when
+    ``generator`` is None)."""
+    if hasattr(policy, "with_intention"):
+        return policy.with_intention(obs_flat, generator)[0]
+    return policy(obs_flat)
+
+
 def make_rollout_fn(env, cfg: RolloutConfig, stochastic: bool = True,
-                    action_delay: int = 0, obs_keys=None):
+                    action_delay: int = 0, obs_keys=None, obs_pad: int = 0):
     """Returns rollout(policy, env_states, tail, generator) ->
     (new_env_states, new_tail, Transition batch (flattened windows),
     metrics).
 
     ``policy(obs_flat)`` returns a NormalDiag; actions are its samples
-    (drawn from ``generator``) or, with stochastic=False, its mode.
+    (drawn from ``generator``) or, with stochastic=False, its mode. An
+    intention policy's latent is drawn from ``generator`` first, either
+    way (``actor_dist``; with no generator its mean is decoded).
     ``tail`` is the previous chunk's trailing n-1 steps, prepended so every
     control step starts exactly one n-step window (without it the last n-1
     steps of a chunk would never start a transition). ``action_delay``
     emulates the reference's DelayedFeedForwardActor queue. ``obs_keys``
-    fixes the flattening order.
+    fixes the flattening order; ``obs_pad`` zeros pad each flat
+    observation (``flat_obs``).
     """
     lo, hi = env.action_spec()
     lo = torch.as_tensor(lo, dtype=env.dtype, device=env.device)
     hi = torch.as_tensor(hi, dtype=env.dtype, device=env.device)
-
-    def concat(obs):
-        return batch_concat(obs, keys=obs_keys, num_batch_dims=1)
 
     @torch.no_grad()
     def rollout(policy, env_states, tail, generator):
@@ -81,8 +102,8 @@ def make_rollout_fn(env, cfg: RolloutConfig, stochastic: bool = True,
         steps = {k: [] for k in _TRANSITION_KEYS}
         key_max = {}
         for _ in range(cfg.unroll_length):
-            obs_flat = concat(env_states.obs)
-            dist = policy(obs_flat)
+            obs_flat = flat_obs(env_states.obs, obs_keys, obs_pad)
+            dist = actor_dist(policy, obs_flat, generator)
             canonical = dist.sample(generator) if stochastic else dist.mode()
             if action_delay > 0:
                 # fixed action-delay queue (reference DelayedFeedForward
@@ -92,7 +113,7 @@ def make_rollout_fn(env, cfg: RolloutConfig, stochastic: bool = True,
                 canonical = delayed
             stepped = env.step(env_states, canonical_to_real(canonical, lo,
                                                              hi))
-            obs_after = concat(stepped.obs)
+            obs_after = flat_obs(stepped.obs, obs_keys, obs_pad)
             env_states = env.apply_autoreset(stepped)
             # per-key obs maxima, live vs terminal: which observable
             # saturates the env clamp, and whether clamp hits are terminal

@@ -8,6 +8,9 @@
 * three Adam optimizers (policy / critic / dual), the first two after a
   global-norm clip of 40 over their own gradients; periodic target-network
   copies (policy every 101 updates, critic every 107).
+* an intention policy (``with_intention``) adds KL(intention || N(0, 1))
+  when ``intention_kl_weight`` > 0; a frozen decoder
+  (``intention_networks.freeze_decoder``) gets no gradients.
 
 The networks and optimizers live in a ``TrainState``; ``update`` changes it
 in place. Target-network passes run under ``torch.no_grad()``.
@@ -91,9 +94,10 @@ class DMPOConfig:
     # (reference learning_dmpo.py:361-373): loss += eps * KL(teacher||pi)
     kickstart_epsilon: float = 0.0
     teacher_apply: Callable | None = None  # (obs) -> NormalDiag
-    # optional KL(pi || N(0, 1)) regularizer (reference learning_dmpo.py:
-    # 376-385, KL_weights[1])
-    kl_to_prior_weight: float = 0.0
+    # optional KL-to-N(0, 1) regularizers (reference learning_dmpo.py:
+    # 376-385: KL_weights = [intention, action])
+    kl_to_prior_weight: float = 0.0        # action dist KL (KL_weights[1])
+    intention_kl_weight: float = 0.0       # intention latent KL ([0])
 
 
 def categorical_l2_project(z_p, probs, z_q):
@@ -182,7 +186,12 @@ class DMPOLearner:
     def _policy_loss(self, state: TrainState, batch: Transition,
                      target_dist: NormalDiag, a_t, q_values):
         cfg = self.cfg
-        online_dist = state.policy(batch.next_obs)
+        intention = None
+        if hasattr(state.policy, "with_intention"):
+            online_dist, intention = state.policy.with_intention(
+                batch.next_obs)
+        else:
+            online_dist = state.policy(batch.next_obs)
         loss, stats = losses_mpo.mpo_loss(
             cfg.mpo, state.dual_params, online_dist, target_dist, a_t,
             q_values)
@@ -201,6 +210,16 @@ class DMPOLearner:
                 dim=-1))
             loss = loss + cfg.kl_to_prior_weight * kl_prior
             stats["kl_to_prior"] = kl_prior
+        if cfg.intention_kl_weight > 0 and intention is not None:
+            # KL(intention || N(0, 1)) on the latent (reference
+            # learning_dmpo.py:377-385, the KL_intention term)
+            zprior = NormalDiag(torch.zeros_like(intention.mean),
+                                torch.ones_like(intention.stddev))
+            kl_int = torch.mean(torch.sum(
+                losses_mpo.kl_normal_diag_per_dim(intention, zprior),
+                dim=-1))
+            loss = loss + cfg.intention_kl_weight * kl_int
+            stats["intention_kl"] = kl_int
         return loss, stats
 
     def losses(self, state: TrainState, batch: Transition, eps=None):
@@ -246,6 +265,8 @@ class DMPOLearner:
             opt.zero_grad(set_to_none=True)
         # the two losses share no parameter: one backward gives both
         (critic_loss + policy_loss).backward()
+        # a frozen decoder has no gradients, so it adds nothing to the norm
+        # (as its zeroed gradients add nothing in the JAX package's chain)
         clip_by_global_norm_(state.policy.parameters(), cfg.clip_global_norm)
         clip_by_global_norm_(state.critic.parameters(), cfg.clip_global_norm)
         for opt in opts:

@@ -7,7 +7,10 @@ A flax tree arrives as nested dicts of numpy arrays, e.g. the policy's
                 "NormalDiagHead_0": {"Dense_0": ..., "Dense_1": ...}}}
 
 A flax Dense kernel is (in, out); a torch Linear weight is (out, in). The
-vision networks' ``VisNetFly_0`` subtree goes to their ``vis`` module.
+vision networks' ``VisNetFly_0`` subtree goes to their ``vis`` module. An
+IntentionPolicy's tree has ``encoder`` ({LayerNormMLP_0, NormalDiagHead_0}
+or, two-level, {LayerNormMLP_0, NormalDiagHead_0, LayerNormMLP_1,
+NormalDiagHead_1}) and ``decoder`` ({LayerNormMLP_0, Dense_0}).
 """
 
 from __future__ import annotations
@@ -28,12 +31,29 @@ def _dense(out: dict, prefix: str, node: dict) -> None:
     out[f"{prefix}.bias"] = _tensor(node["bias"])
 
 
-def _mlp(out: dict, node: dict) -> None:
+def _mlp(out: dict, node: dict, prefix: str = "mlp") -> None:
     n = sum(k.startswith("Dense_") for k in node)
     for i in range(n):
-        _dense(out, f"mlp.linears.{i}", node[f"Dense_{i}"])
-    out["mlp.norm.weight"] = _tensor(node["LayerNorm_0"]["scale"])
-    out["mlp.norm.bias"] = _tensor(node["LayerNorm_0"]["bias"])
+        _dense(out, f"{prefix}.linears.{i}", node[f"Dense_{i}"])
+    out[f"{prefix}.norm.weight"] = _tensor(node["LayerNorm_0"]["scale"])
+    out[f"{prefix}.norm.bias"] = _tensor(node["LayerNorm_0"]["bias"])
+
+
+def _head(out: dict, prefix: str, node: dict) -> None:
+    _dense(out, f"{prefix}.mean", node["Dense_0"])
+    _dense(out, f"{prefix}.scale", node["Dense_1"])
+
+
+def _intention(out: dict, p: dict) -> None:
+    """flax IntentionPolicy params -> the port's IntentionPolicy keys."""
+    enc = p["encoder"]
+    levels = (("high_mlp", "high_head"), ("mlp", "head")) \
+        if "LayerNormMLP_1" in enc else (("mlp", "head"),)
+    for i, (mlp, head) in enumerate(levels):
+        _mlp(out, enc[f"LayerNormMLP_{i}"], f"encoder.{mlp}")
+        _head(out, f"encoder.{head}", enc[f"NormalDiagHead_{i}"])
+    _mlp(out, p["decoder"]["LayerNormMLP_0"], "decoder.mlp")
+    _dense(out, "decoder.mean", p["decoder"]["Dense_0"])
 
 
 def _visnet(out: dict, node: dict) -> None:
@@ -49,16 +69,17 @@ def _visnet(out: dict, node: dict) -> None:
 
 
 def policy_state_dict(variables: dict) -> dict:
-    """flax PolicyNetwork or VisionPolicy variables -> the state_dict of
-    PolicyNetwork or VisionPolicy."""
+    """flax PolicyNetwork, VisionPolicy or IntentionPolicy variables -> the
+    state_dict of the port's module of the same name."""
     p = variables.get("params", variables)
     out = {}
+    if "encoder" in p:
+        _intention(out, p)
+        return out
     if "VisNetFly_0" in p:
         _visnet(out, p["VisNetFly_0"])
     _mlp(out, p["LayerNormMLP_0"])
-    head = p["NormalDiagHead_0"]
-    _dense(out, "head.mean", head["Dense_0"])
-    _dense(out, "head.scale", head["Dense_1"])
+    _head(out, "head", p["NormalDiagHead_0"])
     return out
 
 

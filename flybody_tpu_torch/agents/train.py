@@ -3,16 +3,25 @@
 
 Rate limiting (samples_per_insert) is a deterministic number of updates per
 rollout chunk. Everything lives on the env's device: the networks, the
-replay ring, the generators. Network modes: "plain" (MLP policy +
-distributional critic) and "vision" (the fly's two eyes through VisNetFly
-in both); the intention mode is ROADMAP A6, and the rodent's one-camera
-VisNetRodent comes with the rodent (A7).
+replay ring, the generators. Network modes (reference train_dmpo_ray.py +
+intention_network_factory.py + vis_net.py):
+
+* "plain": MLP policy + distributional critic
+* "intention": encoder-decoder policy over task-first observations, the
+  latent sampled on the actor path, an optional latent KL term, and a
+  decoder that can be restored from a donor and frozen (transfer)
+* "vision": the fly's two eyes through VisNetFly in both networks; the
+  rodent's one-camera VisNetRodent comes with the rodent (ROADMAP A7)
+
+Kickstarting distills from a frozen teacher policy by KL (reference
+learning_dmpo.py:361-373).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import warnings
 from typing import Any, Sequence
 
 import torch
@@ -21,11 +30,24 @@ from flybody_tpu_torch.agents.actors import (RolloutConfig, init_rollout_tail,
                                              make_rollout_fn)
 from flybody_tpu_torch.agents.dmpo import (DMPOConfig, DMPOLearner,
                                            TrainState, Transition)
-from flybody_tpu_torch.agents.networks import (VisionCritic, VisionPolicy,
+from flybody_tpu_torch.agents.intention_networks import (
+    IntentionPolicy, decoder_param_filter, freeze_decoder)
+from flybody_tpu_torch.agents.networks import (DistributionalCritic,
+                                               VisionCritic, VisionPolicy,
                                                make_policy_critic, obs_layout)
 from flybody_tpu_torch.agents.replay import ReplayBuffer
 
+# default task-observation keys that an intention policy's encoder reads
+# (reference train_dmpo_ray.py separate_observation task prefixes)
+DEFAULT_TASK_KEYS = (
+    "ref_displacement", "ref_root_quat", "ref_rel_joints",
+    "ref_rel_bodies_pos_local", "ref_rel_root_quat",
+    "ref_ego_bodies_quats", "ref_appendages_pos", "task_input",
+    "task_logic", "origin", "clip_id",
+)
+
 EYE_KEYS = ("left_eye", "right_eye")
+NETWORKS = ("plain", "intention", "vision")
 
 
 @dataclasses.dataclass
@@ -47,47 +69,150 @@ class TrainerConfig:
     samples_per_insert: float = 32.0
     dmpo: DMPOConfig = dataclasses.field(default_factory=DMPOConfig)
     rollout: RolloutConfig = dataclasses.field(default_factory=RolloutConfig)
-    # network mode: "plain" or "vision" ("intention": A6)
+    # network mode: "plain" | "intention" | "vision"
     network: str = "plain"
+    task_obs_keys: Sequence[str] = DEFAULT_TASK_KEYS
+    intention_size: int = 60
+    high_level_intention_size: int | None = None
     # network shapes (reference network_factory.py:89-113 defaults)
     policy_layers: Sequence[int] = (256, 256, 256)
     critic_layers: Sequence[int] = (512, 512, 256)
+    encoder_layers: Sequence[int] = (512, 512)
+    decoder_layers: Sequence[int] = (512, 512, 512)
     vmin: float = -150.0
     vmax: float = 150.0
     num_atoms: int = 51
+    # transfer: freeze the decoder (restore it with restore_decoder)
+    freeze_decoder: bool = False
     action_delay: int = 0
 
 
-class DMPOTrainer:
-    """The training loop of a FlyEnv, on the env's device (the env
-    factories give "cuda" unless the caller names another)."""
+def check_network(cfg: TrainerConfig) -> None:
+    if cfg.network not in NETWORKS:
+        raise ValueError(f"network={cfg.network!r}: expected one of "
+                         f"{NETWORKS}")
+    if cfg.freeze_decoder and cfg.network != "intention":
+        raise ValueError("freeze_decoder needs network='intention'")
 
-    def __init__(self, env, cfg: TrainerConfig = TrainerConfig()):
-        if cfg.network not in ("plain", "vision"):
-            raise NotImplementedError(
-                f"network={cfg.network!r} is not ported yet (ROADMAP A6)")
-        self.env = env
-        self.cfg = cfg
-        self.device = env.device
-        self.dtype = env.dtype
-        self.obs_keys, self.obs_slices = obs_layout(env.reset(1).obs)
-        self.obs_size = sum(self.obs_slices[k][1] for k in self.obs_keys)
-        self.action_size = env.action_size
-        if cfg.network == "vision":
-            policy, critic = self._vision_nets()
-        else:
-            policy, critic = make_policy_critic(
+
+class TrainerBase:
+    """What the single- and the multi-task trainer share: the networks and
+    their learner, the learner's stat names, kickstarting and decoder
+    transfer. A subclass sets ``cfg``, ``device``, ``dtype``, ``obs_size``,
+    ``action_size`` and ``task_obs_size``, then calls ``_make_learner``."""
+
+    def _make_learner(self, nets=None) -> None:
+        """``nets`` (policy, critic), else cfg.network's plain or intention
+        pair (the decoder frozen with cfg.freeze_decoder), on the trainer's
+        device and dtype; their DMPOLearner; the rollout config's n-step
+        settings."""
+        cfg = self.cfg
+        if nets is None and cfg.network == "intention":
+            policy = IntentionPolicy(
+                self.obs_size, self.action_size, self.task_obs_size,
+                intention_size=cfg.intention_size,
+                encoder_layers=tuple(cfg.encoder_layers),
+                decoder_layers=tuple(cfg.decoder_layers),
+                high_level_intention_size=cfg.high_level_intention_size)
+            if cfg.freeze_decoder:
+                freeze_decoder(policy)
+            nets = policy, DistributionalCritic(
+                self.obs_size, self.action_size,
+                layer_sizes=tuple(cfg.critic_layers), vmin=cfg.vmin,
+                vmax=cfg.vmax, num_atoms=cfg.num_atoms)
+        elif nets is None:
+            nets = make_policy_critic(
                 self.action_size, self.obs_size,
                 policy_layers=tuple(cfg.policy_layers),
                 critic_layers=tuple(cfg.critic_layers),
                 vmin=cfg.vmin, vmax=cfg.vmax, num_atoms=cfg.num_atoms)
-        self.policy = policy.to(self.device, self.dtype)
-        self.critic = critic.to(self.device, self.dtype)
+        self.policy = nets[0].to(self.device, self.dtype)
+        self.critic = nets[1].to(self.device, self.dtype)
         self.learner = DMPOLearner(self.policy, self.critic,
                                    self.action_size, self.obs_size, cfg.dmpo)
         cfg.rollout.unroll_length = cfg.unroll_length
         cfg.rollout.n_step = cfg.dmpo.n_step
         cfg.rollout.discount = cfg.dmpo.discount
+        self._stat_keys = None  # the learner's stat names, once known
+
+    def _zero_transition(self, n: int) -> Transition:
+        z = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
+        return Transition(obs=z(n, self.obs_size), action=z(n,
+                                                             self.action_size),
+                          reward=z(n), discount=z(n),
+                          next_obs=z(n, self.obs_size))
+
+    def load_teacher(self, teacher_state_dict: dict, epsilon: float) -> None:
+        """Enable kickstarting: distill from a frozen teacher policy
+        (reference learning_dmpo.py:361-373)."""
+        teacher = copy.deepcopy(self.policy)
+        teacher.load_state_dict(teacher_state_dict)
+        teacher = teacher.requires_grad_(False)
+        self.learner.cfg = dataclasses.replace(
+            self.learner.cfg, kickstart_epsilon=epsilon,
+            teacher_apply=teacher)
+        self._stat_keys = None  # the kickstart term adds a stat
+
+    def restore_decoder(self, train: TrainState, donor: dict) -> TrainState:
+        """Transfer mode: copy the decoder entries of the donor policy's
+        state_dict into ``train``'s online and target policy, in place
+        (reference learning_dmpo.py:236-243); with cfg.freeze_decoder they
+        then stay as restored. Raises when the donor has no decoder entry
+        that the policy has."""
+        dec = decoder_param_filter(donor)[0]
+        for net in (train.policy, train.target_policy):
+            own = net.state_dict()
+            hits = [k for k in dec if k in own]
+            if not hits:
+                raise ValueError("the donor has no decoder parameter of "
+                                 "this policy")
+            with torch.no_grad():
+                for k in hits:
+                    own[k].copy_(dec[k])
+        return train
+
+    def stat_keys(self, train: TrainState) -> list:
+        """The names of the stats ``learner.update`` returns, worked out
+        once from the losses of one zero transition (no step, no draw from
+        any generator)."""
+        if self._stat_keys is None:
+            eps = torch.zeros((self.cfg.dmpo.num_samples, 1,
+                               self.action_size), dtype=self.dtype,
+                              device=self.device)
+            with torch.no_grad():
+                _, _, stats = self.learner.losses(
+                    train, self._zero_transition(1), eps)
+            self._stat_keys = list(stats) + ["critic_loss",
+                                             "policy_loss_total"]
+        return self._stat_keys
+
+
+class DMPOTrainer(TrainerBase):
+    """The training loop of a FlyEnv, on the env's device (the env
+    factories give "cuda" unless the caller names another)."""
+
+    def __init__(self, env, cfg: TrainerConfig = TrainerConfig()):
+        check_network(cfg)
+        self.env = env
+        self.cfg = cfg
+        self.device = env.device
+        self.dtype = env.dtype
+        task_keys = set(cfg.task_obs_keys) if cfg.network == "intention" \
+            else set()
+        self.obs_keys, self.obs_slices = obs_layout(env.reset(1).obs,
+                                                    tuple(task_keys))
+        self.obs_size = sum(self.obs_slices[k][1] for k in self.obs_keys)
+        self.action_size = env.action_size
+        self.task_obs_size = sum(self.obs_slices[k][1] for k in self.obs_keys
+                                 if k in task_keys)
+        if cfg.network == "intention" and self.task_obs_size == 0:
+            # no task observation in this env: the encoder reads the whole
+            # observation (a pure bottleneck policy)
+            warnings.warn("intention network: no task_obs_keys present in "
+                          "this env's observations; encoder sees all obs")
+            self.task_obs_size = self.obs_size
+        self._make_learner(self._vision_nets() if cfg.network == "vision"
+                           else None)
         self.rollout_fn = make_rollout_fn(
             env, cfg.rollout, obs_keys=self.obs_keys,
             action_delay=cfg.action_delay)
@@ -97,7 +222,6 @@ class DMPOTrainer:
         inserted = cfg.num_envs * cfg.unroll_length
         self.updates_per_iter = max(
             1, int(inserted * cfg.samples_per_insert // cfg.dmpo.batch_size))
-        self._stat_keys = None  # the learner's stat names, once known
 
     def _vision_nets(self):
         """The fly's stereo eyes through VisNetFly in the policy and the
@@ -135,39 +259,6 @@ class DMPOTrainer:
         return LoopState(train=train, env_states=env_states, replay=replay,
                          generator=loop_gen, actor_steps=0,
                          rollout_tail=tail)
-
-    def _zero_transition(self, n: int) -> Transition:
-        z = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
-        return Transition(obs=z(n, self.obs_size), action=z(n,
-                                                             self.action_size),
-                          reward=z(n), discount=z(n),
-                          next_obs=z(n, self.obs_size))
-
-    def load_teacher(self, teacher_state_dict: dict, epsilon: float) -> None:
-        """Enable kickstarting: distill from a frozen teacher policy
-        (reference learning_dmpo.py:361-373)."""
-        teacher = copy.deepcopy(self.policy)
-        teacher.load_state_dict(teacher_state_dict)
-        teacher = teacher.requires_grad_(False)
-        self.learner.cfg = dataclasses.replace(
-            self.learner.cfg, kickstart_epsilon=epsilon,
-            teacher_apply=teacher)
-        self._stat_keys = None  # the kickstart term adds a stat
-
-    def stat_keys(self, train: TrainState) -> list:
-        """The names of the stats ``learner.update`` returns, worked out
-        once from the losses of one zero transition (no step, no draw from
-        any generator)."""
-        if self._stat_keys is None:
-            eps = torch.zeros((self.cfg.dmpo.num_samples, 1,
-                               self.action_size), dtype=self.dtype,
-                              device=self.device)
-            with torch.no_grad():
-                _, _, stats = self.learner.losses(
-                    train, self._zero_transition(1), eps)
-            self._stat_keys = list(stats) + ["critic_loss",
-                                             "policy_loss_total"]
-        return self._stat_keys
 
     def train_iteration(self, loop: LoopState):
         """rollout -> insert -> updates, in place on ``loop``; returns

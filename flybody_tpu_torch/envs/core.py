@@ -78,6 +78,15 @@ class Task:
                                             sensor_mean)
         return r, t, d, task_state
 
+    def reward_factors(self, model: Model, data: Data, task_state,
+                       sensor_mean) -> dict:
+        """Named per-step reward channels, each (B,), for the evaluator's
+        reward-decomposition plots (reference utils.py
+        render_with_rewards). Default: the scalar reward."""
+        r, _, _ = self.reward_term_discount(model, data, task_state,
+                                            sensor_mean)
+        return {"reward": r}
+
 
 def _map(fn, *trees):
     """Apply fn leaf-wise over matching dicts / tuples / dataclasses /

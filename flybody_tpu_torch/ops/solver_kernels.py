@@ -98,10 +98,16 @@ def _rsum(x):
 
 
 def _apgd_math(yd, b, rreg, act, mu, f0, v0, *, kl, kc, iterations,
-               noslip_iterations, power_iters):
+               noslip_iterations, power_iters, flip=None, trace=None):
     """APGD + noslip on A = Yd^T Yd + diag(rreg). yd (nv, R, B), vectors
     (R, B), mu (kc, B); v0 = warm power-iteration start. Returns
-    (f (R, B), ystar = Yd f (nv, B), v (R, B))."""
+    (f (R, B), ystar = Yd f (nv, B), v (R, B)).
+
+    The restart test r = sum(g (z_new - z)) > 0 is the one discontinuous
+    decision: where r is near 0 another summation order can decide it
+    otherwise. ``flip`` (iterations, B) bool takes the other decision
+    where True; ``trace``, a list, gains (r, sum |g (z_new - z)|), each
+    (1, B), per iteration."""
     n0, n1, n2 = kl, kl + kc, kl + 2 * kc
 
     def mv_y(f):                     # Yd f -> (nv, B)
@@ -160,12 +166,17 @@ def _apgd_math(yd, b, rreg, act, mu, f0, v0, *, kl, kc, iterations,
     z = proj(f0 / torch.clamp(s, min=1e-30))
     zp = z
     kk = torch.zeros_like(b[:1])
-    for _ in range(iterations):
+    for i in range(iterations):
         beta = kk / (kk + 3.0)
         y = z + beta * (z - zp)
         g = mv_as(y) - bs
         z_new = proj(y - inv_l * g)
-        restart = _rsum(g * (z_new - z)) > 0
+        gdz = g * (z_new - z)
+        restart = _rsum(gdz) > 0
+        if trace is not None:
+            trace.append((_rsum(gdz), _rsum(gdz.abs())))
+        if flip is not None:
+            restart = restart ^ flip[i:i + 1]
         kk = torch.where(restart, torch.zeros_like(kk), kk + 1.0)
         zp, z = z, z_new
 
@@ -211,9 +222,10 @@ def solve_rows_reference(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
                          ld, dinv, qacc_smooth, qvel, kcoef, bcoef, posr,
                          rreg, active, mu, f0, v0=None, *, kl: int, kc: int,
                          iterations: int, noslip_iterations: int = 0,
-                         power_iters: int = 4):
+                         power_iters: int = 4, flip=None, trace=None):
     """Plain PyTorch version of ``solve_rows``: J build, up-solve, APGD,
-    then ``tree_ldl.mul_lt`` and ``tree_ldl.solve_down`` for the outputs."""
+    then ``tree_ldl.mul_lt`` and ``tree_ldl.solve_down`` for the outputs.
+    ``flip`` and ``trace`` as in ``_apgd_math``."""
     if v0 is None:
         v0 = active
     yd, bvec = upsolve_build_yd_reference(
@@ -222,7 +234,7 @@ def solve_rows_reference(tree, d6, u6, b1, b2, lim_sign, lim_dadr, maskd,
     f, ystar, v = _apgd_math(yd, bvec, rreg, active, mu, f0, v0,
                              kl=kl, kc=kc, iterations=iterations,
                              noslip_iterations=noslip_iterations,
-                             power_iters=power_iters)
+                             power_iters=power_iters, flip=flip, trace=trace)
     sqrt_d = 1.0 / torch.sqrt(torch.clamp(dinv, min=1e-30))
     qfrc = TL.mul_lt(tree, ld, ystar * sqrt_d)
     dqacc = TL.solve_down(tree, ld, ystar * torch.sqrt(dinv))

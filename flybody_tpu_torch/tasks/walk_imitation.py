@@ -199,6 +199,14 @@ class WalkImitation(Task):
             walker_ft, ref_ft, weights=(20.0, 1.0, 1.0, 1.0))
         return factors, walker_ft, ref_ft
 
+    def reward_factors(self, model: Model, data: Data, task_state,
+                       sensor_mean) -> dict:
+        """The four DeepMimic channels, each (B,), whose product is the
+        reward."""
+        factors = self._deep_mimic_factors(model, data, task_state)[0]
+        return dict(zip(("com", "qvel", "end_effectors", "joints"),
+                        factors))
+
     def reward_term_discount(self, model: Model, data: Data, task_state,
                              sensor_mean):
         factors, walker_ft, ref_ft = self._deep_mimic_factors(

@@ -8,11 +8,13 @@ one device. Usage:
 It runs on "cuda" and raises without it unless ``--device cpu`` is given.
 ``--test`` runs a small smoke configuration printing stats. The flags are
 those of the JAX package's train_dmpo.py. The tasks walk_on_ball, template,
-walk_imitation, flight_imitation and vision_guided_flight are ported, and
-the plain and vision networks (``--network vision`` on
-vision_guided_flight); the rodent and humanoid tasks (ROADMAP A7), the
-intention network and its flags, multi-task training and decoder transfer
-(A6) raise NotImplementedError.
+walk_imitation, flight_imitation and vision_guided_flight are ported, with
+the plain, intention (``--network intention`` and its five flags) and
+vision (``--network vision``) networks, multi-task training
+(``--task-envs task:n,task:n`` or a YAML ``task_envs``), decoder transfer
+(``--transfer-ckpt``: restore a donor's decoder and freeze it) and
+kickstarting (``--kickstart-ckpt``); the rodent and humanoid tasks raise
+NotImplementedError (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -32,11 +34,11 @@ PORTED = {"walk_on_ball": "walk_on_ball", "template": "template_task",
           "flight_imitation": "flight_imitation",
           "vision_guided_flight": "vision_guided_flight"}
 
-# flags read only by the intention network (ROADMAP A6), with their
-# defaults: any other value raises rather than being dropped
-A6_FLAGS = {"encoder_layers": "512,512", "decoder_layers": "512,512,512",
-            "intention_size": 60, "high_level_intention_size": 0,
-            "intention_kl_weight": 0.0}
+# flags read only by the intention network, with their defaults: another
+# value with another network raises rather than being dropped
+INTENTION_FLAGS = {"encoder_layers": "512,512",
+                   "decoder_layers": "512,512,512", "intention_size": 60,
+                   "high_level_intention_size": 0, "intention_kl_weight": 0.0}
 
 
 def make_env(name: str, device):
@@ -52,8 +54,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--task", default="walk_on_ball", choices=sorted(TASKS))
     p.add_argument("--task-envs", default="",
-                   help="multi-task mode: 'task:num_envs,task:num_envs' "
-                        "(not ported: ROADMAP A6)")
+                   help="multi-task mode: 'task:num_envs,task:num_envs'")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' only when asked for")
     p.add_argument("--num-envs", type=int, default=256)
@@ -76,8 +77,10 @@ def parse_args(argv=None):
     # network shapes (reference network_factory.py:89-113)
     p.add_argument("--policy-layers", default="256,256,256")
     p.add_argument("--critic-layers", default="512,512,256")
-    p.add_argument("--encoder-layers", default=A6_FLAGS["encoder_layers"])
-    p.add_argument("--decoder-layers", default=A6_FLAGS["decoder_layers"])
+    p.add_argument("--encoder-layers",
+                   default=INTENTION_FLAGS["encoder_layers"])
+    p.add_argument("--decoder-layers",
+                   default=INTENTION_FLAGS["decoder_layers"])
     p.add_argument("--vmin", type=float, default=-150.0)
     p.add_argument("--vmax", type=float, default=150.0)
     p.add_argument("--num-atoms", type=int, default=51)
@@ -88,19 +91,22 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--network", default="plain",
                    choices=("plain", "intention", "vision"),
-                   help="network factory mode ('intention' is not ported)")
+                   help="network factory mode (reference "
+                        "intention_network_factory / vis_net)")
     p.add_argument("--intention-size", type=int,
-                   default=A6_FLAGS["intention_size"])
+                   default=INTENTION_FLAGS["intention_size"])
     p.add_argument("--high-level-intention-size", type=int,
-                   default=A6_FLAGS["high_level_intention_size"])
+                   default=INTENTION_FLAGS["high_level_intention_size"],
+                   help="two-level encoder's high-level latent (0: one "
+                        "level)")
     p.add_argument("--intention-kl-weight", type=float,
-                   default=A6_FLAGS["intention_kl_weight"])
+                   default=INTENTION_FLAGS["intention_kl_weight"])
     p.add_argument("--kickstart-ckpt", default="",
                    help="teacher policy checkpoint for kickstarting")
     p.add_argument("--kickstart-epsilon", type=float, default=0.01)
     p.add_argument("--transfer-ckpt", default="",
                    help="donor checkpoint: restore decoder + freeze "
-                        "(not ported: ROADMAP A6)")
+                        "(reference bowl-transfer config)")
     p.add_argument("--config", default="",
                    help="YAML run config (overrides CLI defaults; "
                         "reference vnl_ray/config/*.yaml)")
@@ -127,24 +133,45 @@ def layers(s):
     return tuple(int(x) for x in str(s).split(",") if str(x).strip())
 
 
+def task_envs_of(args) -> dict:
+    """The multi-task spec {task: num_envs}: a dict from YAML
+    (task_envs / actors_envs) or "task:n,task:n" from the command line;
+    tasks with 0 envs are dropped, and --test gives each task 8."""
+    spec = args.task_envs
+    if isinstance(spec, str):
+        spec = {kv.split(":")[0].strip(): int(kv.split(":")[1])
+                for kv in spec.split(",") if kv.strip()}
+    spec = {k: int(n) for k, n in (spec or {}).items() if int(n) > 0}
+    if args.test:
+        spec = {k: 8 for k in spec}
+    return spec
+
+
+def build_trainer(args, cfg):
+    """DMPOTrainer on --task, or MultiTaskDMPOTrainer over --task-envs."""
+    from flybody_tpu_torch.agents.train import DMPOTrainer
+    task_envs = task_envs_of(args)
+    if task_envs:
+        # multi-task generalist: a batch of envs and a replay table per
+        # task, one round-robin learner (reference train_dmpo_ray.py
+        # actors_envs topology)
+        from flybody_tpu_torch.agents.multitask import MultiTaskDMPOTrainer
+        envs = {k: make_env(k, args.device) for k in task_envs}
+        return MultiTaskDMPOTrainer(envs, task_envs, cfg)
+    return DMPOTrainer(make_env(args.task, args.device), cfg)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.task_envs:
-        raise NotImplementedError(
-            "multi-task training is not ported yet (ROADMAP A6)")
-    if args.transfer_ckpt:
-        raise NotImplementedError(
-            "decoder transfer needs the intention network (ROADMAP A6)")
-    for k, default in A6_FLAGS.items():
-        v = getattr(args, k)
-        if (layers(v) != layers(default) if k.endswith("_layers")
-                else v != default):
-            raise NotImplementedError(
-                f"--{k.replace('_', '-')} is read only by the intention "
-                f"network, which is not ported yet (ROADMAP A6)")
-
+    if args.network != "intention":
+        for k, default in INTENTION_FLAGS.items():
+            v = getattr(args, k)
+            if (layers(v) != layers(default) if k.endswith("_layers")
+                    else v != default):
+                raise ValueError(f"--{k.replace('_', '-')} is read only by "
+                                 "--network intention")
     from flybody_tpu_torch.agents.dmpo import DMPOConfig
-    from flybody_tpu_torch.agents.train import DMPOTrainer, TrainerConfig
+    from flybody_tpu_torch.agents.train import TrainerConfig
     from flybody_tpu_torch.io import checkpoint as ckpt
     from flybody_tpu_torch.utils.loggers import make_default_logger
 
@@ -154,8 +181,13 @@ def main(argv=None):
         min_replay_size=args.min_replay_size,
         samples_per_insert=args.samples_per_insert,
         network=args.network,
+        intention_size=args.intention_size,
+        high_level_intention_size=(args.high_level_intention_size or None),
+        freeze_decoder=bool(args.transfer_ckpt),
         policy_layers=layers(args.policy_layers),
         critic_layers=layers(args.critic_layers),
+        encoder_layers=layers(args.encoder_layers),
+        decoder_layers=layers(args.decoder_layers),
         vmin=args.vmin, vmax=args.vmax, num_atoms=args.num_atoms,
         action_delay=args.action_delay,
         dmpo=DMPOConfig(batch_size=args.batch_size, n_step=args.n_step,
@@ -167,10 +199,13 @@ def main(argv=None):
                         target_policy_update_period=(
                             args.target_policy_update_period),
                         target_critic_update_period=(
-                            args.target_critic_update_period)))
-    trainer = DMPOTrainer(make_env(args.task, args.device), cfg)
-    print(f"task {args.task}: {trainer.obs_size} observation floats, "
-          f"{trainer.action_size} actions, on {trainer.device}", flush=True)
+                            args.target_critic_update_period),
+                        intention_kl_weight=args.intention_kl_weight))
+    trainer = build_trainer(args, cfg)
+    tasks = ",".join(getattr(trainer, "names", (args.task,)))
+    print(f"task {tasks}: {trainer.obs_size} observation floats, "
+          f"{trainer.action_size} actions, network {args.network}, on "
+          f"{trainer.device}", flush=True)
     if args.kickstart_ckpt:
         trainer.load_teacher(ckpt.restore_policy_params(args.kickstart_ckpt),
                              args.kickstart_epsilon)
@@ -178,6 +213,11 @@ def main(argv=None):
                                  csv_dir=args.ckpt_dir or "logs")
 
     loop = trainer.init(args.seed)
+    if args.transfer_ckpt:
+        trainer.restore_decoder(
+            loop.train, ckpt.restore_policy_params(args.transfer_ckpt))
+        print(f"transfer: decoder restored from {args.transfer_ckpt} and "
+              "frozen", flush=True)
     ckptr = (ckpt.PeriodicCheckpointer(args.ckpt_dir, args.ckpt_minutes)
              if args.ckpt_dir else None)
     # checkpoints carry the learner state only (networks, optimizers,
@@ -214,6 +254,8 @@ def main(argv=None):
                 "critic_loss": critic_loss,
                 "dual_temperature": float(metrics["dual_temperature"]),
                 "obs_absmax": float(metrics["obs_absmax"]),
+                **({"intention_kl": float(metrics["intention_kl"])}
+                   if "intention_kl" in metrics else {}),
             })
             if metrics["learner_steps"] > 0 and not math.isfinite(
                     critic_loss):

@@ -50,7 +50,11 @@ def test_import_leaves_jax_unloaded():
             "flybody_tpu_torch.tasks.template_task, "
             "flybody_tpu_torch.tasks.vision_flight, "
             "flybody_tpu_torch.tasks.arenas, flybody_tpu_torch.ops.raycast, "
-            "flybody_tpu_torch.envs.wrappers; "
+            "flybody_tpu_torch.envs.wrappers, "
+            "flybody_tpu_torch.agents.intention_networks, "
+            "flybody_tpu_torch.agents.multitask, "
+            "flybody_tpu_torch.agents.evaluator, "
+            "flybody_tpu_torch.utils.rendering; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -131,6 +131,37 @@ def test_fly_state_update_substep_inputs(fly_rows):
     _check(got, want)
 
 
+def test_restart_trace_and_flip(fly_rows):
+    """The plain version's restart trace (r, sum |g dz|) per iteration and
+    its ``flip`` of one env's decision at one iteration: a mask of no
+    flips changes nothing, a flip changes that env alone, and the flipped
+    iteration's r is the one the trace gave."""
+    parent, args, kw = fly_rows
+    tree = TL.build_tree_meta(parent)
+    a = {k: torch.as_tensor(v) for k, v in args.items()}
+    trace = []
+    want = SK.solve_rows_reference(tree, **a, **kw, trace=trace)
+    B = a["f0"].shape[1]
+    assert len(trace) == kw["iterations"]
+    r = torch.cat([t[0] for t in trace])
+    s = torch.cat([t[1] for t in trace])
+    assert r.shape == s.shape == (kw["iterations"], B)
+    assert bool((r.abs() <= s * (1 + 1e-12)).all()) and bool((s > 0).any())
+    none = torch.zeros(kw["iterations"], B, dtype=torch.bool)
+    same = SK.solve_rows_reference(tree, **a, **kw, flip=none)
+    assert all(torch.equal(x, y) for x, y in zip(same, want))
+    flip = none.clone()
+    flip[3, 1] = True
+    trace2 = []
+    alt = SK.solve_rows_reference(tree, **a, **kw, flip=flip, trace=trace2)
+    assert torch.equal(trace2[3][0], trace[3][0])   # decided on the same r
+    for x, y in zip(alt, want):
+        assert torch.equal(x[..., 0], y[..., 0])
+    assert not torch.equal(alt[0][:, 1], want[0][:, 1])
+    assert torch.equal(alt[1], want[1])             # v: no restart in it
+    assert SK.solve_rows.launches == 0
+
+
 # ---- the stage kernels ----------------------------------------------------
 
 ROW_ARGS = ARGS[:14]        # upsolve_build_yd's inputs after the tree

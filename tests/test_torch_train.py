@@ -269,21 +269,60 @@ def test_trainer_needs_cuda_unless_told_otherwise():
         train_dmpo.make_env("rodent_escape_bowl", "cpu")
 
 
+class _TaskToyEnv(_ToyEnv):
+    """The toy env with a task observation for the intention encoder."""
+
+    def reset(self, B, generator=None):
+        s = super().reset(B, generator)
+        s.obs["task_input"] = torch.ones(B, 2, dtype=self.dtype)
+        return s
+
+
+# each intention flag's non-default value, read off the built trainer
+_INTENTION_FLAG_CHECKS = {
+    "--encoder-layers": ("256,256", lambda tr: (
+        tr.cfg.encoder_layers, tr.policy.encoder.mlp.linears[1].out_features)
+        == ((256, 256), 256)),
+    "--decoder-layers": ("512,512", lambda tr: (
+        tr.cfg.decoder_layers, len(tr.policy.decoder.mlp.linears))
+        == ((512, 512), 2)),
+    "--intention-size": ("30", lambda tr: (
+        tr.policy.encoder.head.mean.out_features,
+        tr.policy.decoder.mlp.linears[0].in_features) == (30, 30 + 3)),
+    "--high-level-intention-size": ("8", lambda tr: (
+        tr.cfg.high_level_intention_size,
+        tr.policy.encoder.high_head.mean.out_features) == (8, 8)),
+    "--intention-kl-weight": ("0.1", lambda tr: (
+        tr.learner.cfg.intention_kl_weight == 0.1)),
+}
+
+
 @pytest.mark.parametrize("flag,value", [
-    ("--encoder-layers", "256,256"), ("--decoder-layers", "512,512"),
-    ("--intention-size", "30"), ("--high-level-intention-size", "8"),
-    ("--intention-kl-weight", "0.1")])
+    (f, v) for f, (v, _) in _INTENTION_FLAG_CHECKS.items()])
 def test_cli_refuses_intention_flags(flag, value):
-    """Flags that only the intention network reads raise instead of being
-    dropped; their defaults pass the check."""
+    """Flags that only the intention network reads raise with another
+    network rather than being dropped; with --network intention each
+    non-default value reaches the built trainer (its config or the
+    network's shape)."""
     from flybody_tpu_torch import train_dmpo
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="--network intention"):
         train_dmpo.main(["--device", "cpu", flag, value])
-    default = train_dmpo.A6_FLAGS[flag[2:].replace("-", "_")]
+    default = train_dmpo.INTENTION_FLAGS[flag[2:].replace("-", "_")]
     with pytest.raises(RuntimeError, match="sentinel"):
         with mock.patch("flybody_tpu_torch.train_dmpo.make_env",
                         side_effect=RuntimeError("sentinel")):
             train_dmpo.main(["--device", "cpu", flag, str(default)])
+    built, real = [], train_dmpo.build_trainer
+    with mock.patch.object(train_dmpo, "make_env",
+                           return_value=_TaskToyEnv()), \
+            mock.patch.object(train_dmpo, "build_trainer",
+                              side_effect=lambda *a: built.append(real(*a))
+                              or built[-1]):
+        assert train_dmpo.main(["--device", "cpu", "--network", "intention",
+                                "--iterations", "0", flag, value]) == 0
+    trainer = built[0]
+    assert trainer.task_obs_size == 2 and trainer.obs_keys[0] == "task_input"
+    assert _INTENTION_FLAG_CHECKS[flag][1](trainer), flag
 
 
 def test_cli_test_mode_on_cpu():
@@ -316,3 +355,62 @@ def test_cli_walk_imitation_on_cpu():
     assert len(line) == 1 and "learner_steps=80" in line[0], res.stdout
     loss = float(line[0].split("critic_loss=")[1].split()[0].rstrip(","))
     assert np.isfinite(loss) and loss != 0.0, line[0]
+
+
+def _learner_line(stdout):
+    line = [x for x in stdout.splitlines() if x.startswith("[learner]")]
+    assert len(line) == 1, stdout
+    return line[0]
+
+
+def _stat(line, key):
+    return float(line.split(f"{key}=")[1].split()[0].rstrip(","))
+
+
+def test_cli_intention_on_walk_imitation():
+    """--network intention on walk_imitation in --test mode on the CPU:
+    the encoder reads the ref_* task keys, and the first iteration trains
+    with a finite latent KL."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-m", "flybody_tpu_torch.train_dmpo", "--task",
+         "walk_imitation", "--network", "intention", "--intention-kl-weight",
+         "1e-4", "--test", "--device", "cpu", "--iterations", "1",
+         "--samples-per-insert", "4"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "network intention" in res.stdout, res.stdout
+    line = _learner_line(res.stdout)
+    assert "learner_steps=10" in line, line
+    kl = _stat(line, "intention_kl")
+    assert np.isfinite(kl) and kl > 0, line
+
+
+def test_cli_transfer_restores_and_freezes_the_decoder(tmp_path):
+    """--transfer-ckpt: the decoder comes from a donor checkpoint written
+    here and stays as restored through an iteration of updates, while the
+    encoder trains."""
+    from flybody_tpu_torch.fly_envs import walk_imitation
+    donor = DMPOTrainer(walk_imitation(device="cpu"), TrainerConfig(
+        network="intention")).init(7).train
+    path = ckpt.save(str(tmp_path / "donor"), {"train": donor})
+    run = tmp_path / "run"
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-m", "flybody_tpu_torch.train_dmpo", "--task",
+         "walk_imitation", "--network", "intention", "--transfer-ckpt", path,
+         "--test", "--device", "cpu", "--iterations", "1",
+         "--samples-per-insert", "4", "--ckpt-dir", str(run),
+         "--ckpt-minutes", "0"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "transfer: decoder restored" in res.stdout, res.stdout
+    assert "learner_steps=10" in _learner_line(res.stdout)
+    got = ckpt.restore_policy_params(ckpt.latest(str(run)))
+    want = donor.policy.state_dict()
+    decoder = [k for k in want if k.startswith("decoder.")]
+    assert decoder
+    for k in decoder:
+        _equal(k, got[k], want[k])
+    assert not torch.equal(got["encoder.head.mean.weight"],
+                           want["encoder.head.mean.weight"])
