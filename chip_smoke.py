@@ -19,10 +19,13 @@ Phases (each prints its lines; any failure exits non-zero):
               main path's shapes: (a) inputs captured from the main path's
               final state, (b) random inputs; times of both, and of (a)
               with the solver loop switched off (where the time goes).
-              Every solve_rows hold (here and in phases 8-12) first
+              Every solve_rows hold (here and in phases 8-13) first
               replays the plain version with the other restart decision
               in an env where its restart test was a near tie (TIE) and
-              the kernel took the other path, and prints those replays
+              the kernel took the other path, and prints those replays;
+              it fails when more than max(TIE_MIN_ENVS, ceil(TIE_SHARE *
+              B)) of them are flips (an env over TIE_NOISE that the
+              replay brings TIE_GAIN or less of its error)
   6. stages   the stage split of the same solve on phase 5's fly inputs:
               upsolve_build_yd, upsolve_yd (on J^T of the same rows, held
               against upsolve_build_yd and against its plain version) and
@@ -53,7 +56,8 @@ Phases (each prints its lines; any failure exits non-zero):
               updates on the CPU: the losses of each, the last one's
               clipped gradients and the parameters, in float64 (held at
               1e-9) and in float32 (each side's float32-to-float64
-              distance sets how far apart the two may be)
+              distance sets how far apart the two may be, and the card's
+              distance may be at most CARD_F32_RATIO times the CPU's)
   9. imitation walk_imitation (the free fly on a floor, the JAX package's
               budgets: solve_rows at 176 rows, the kernel's wide instance)
               at B=4096, float32: reset from a seeded CUDA generator, one
@@ -135,10 +139,37 @@ Phases (each prints its lines; any failure exits non-zero):
               the next substep of its own final state at its own batch:
               R 176 at B=256 (a, b), R 152 and R 176 at B=128 (c), R 176
               at B=8 (d) and B=1 (e)
- 13. registers, shared memory, resident blocks and warps per SM, local
+ 13. rodent   the dm_control rat (nv 73, 20 substeps per control step,
+              solve_rows at 96 rows, the narrow instance): (a)
+              rodent_two_touch at B=4096, float32, as phase 9 (reset from
+              a seeded CUDA generator, one warm-up control step, 5 timed
+              autoreset_step calls: exactly 20 solve_rows launches per
+              control step and no other kernel, obs and reward finite);
+              (b) rodent_run_gaps, rodent_escape_bowl and
+              rodent_maze_forage the same way for 2 control steps each,
+              heightfield contacts selected on gaps or bowl, and one
+              substep of 4 envs of gaps' and bowl's final states lowered
+              onto the terrain, card against CPU as in phase 4, with
+              penetrating heightfield contacts among the solver's cones in
+              every env; (c) one substep of 4 envs on the card against
+              the CPU as in phase 4 from (a)'s final state, and from a
+              head-down state (the joints at qpos0, the root pitched nose
+              down and lowered until the skull and jaw boxes press into
+              the floor) with penetrating plane-box contacts among the
+              solver's cones in every env; (d) solve_rows against its plain
+              version on (a)'s final state and on random inputs over the
+              rat's tree at 96 rows, timed with and without its loop; (e)
+              DMPOTrainer with configs/train_config_two_taps.yaml's
+              networks (policy [512]x4, critic [512, 512, 512, 256], batch
+              512) at its 64 envs, one iteration of unroll 10 training
+              once that rollout is in replay: exactly 200 launches,
+              solve_rows held on its final state at B=64, three learner
+              updates card vs CPU as in phase 8
+ 14. registers, shared memory, resident blocks and warps per SM, local
      (spill) bytes and apgd_iterate's active clusters of every kernel
      (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes,
-     solve_rows at the vision shape), also as each kernel row's
+     solve_rows at the vision and rodent shapes), also as each kernel
+     row's
      "occupancy"; the kernel table as JSON ("launches" on the main path of
      phase 3 or 6-7, "launches_train" in phase 8, solve_rows'
      "launches_imitation", "ms_imitation", "plain_ms_imitation" and
@@ -147,11 +178,14 @@ Phases (each prints its lines; any failure exits non-zero):
      "launches_transfer", "launches_multitask", "launches_eval" and
      "launches_render" in phase 12, with "max_abs_err_intention",
      "_transfer", "_multitask_walk_on_ball", "_multitask_walk_imitation",
-     "_eval" and "_render"; upsolve_yd's "*_imitation" and
-     "*_flight" keys in phases 9-10, with its library yardstick's
-     "library_ms_*"; upsolve_build_yd's and apgd_iterate's "*_imitation"
-     and "*_flight" keys, and apgd_iterate's "loop_off_ms*"), the card
-     line, the result line
+     "_eval" and "_render"; "*_rodent" keys in phase 13 with
+     "launches_rodent_gaps", "_bowl", "_maze" and "_train",
+     "max_abs_err_rodent_random" and "_rodent_train"; beside them, each
+     hold's "replayed*" envs, flips, share and cap; upsolve_yd's
+     "*_imitation" and "*_flight" keys in phases 9-10, with its library
+     yardstick's "library_ms_*"; upsolve_build_yd's and apgd_iterate's
+     "*_imitation" and "*_flight" keys, and apgd_iterate's
+     "loop_off_ms*"), the card line, the result line
 """
 
 from __future__ import annotations
@@ -159,6 +193,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -184,6 +219,12 @@ MULTI_ENVS = 128
 EVAL_STEPS = 10
 EVAL_EPISODES = 8
 RENDER_STEPS = 5
+# phase 13: the rat's control steps at B (a, two_touch; b, each
+# heightfield arena) and the trainer's envs (e,
+# configs/train_config_two_taps.yaml's 64)
+RODENT_STEPS = 5
+RODENT_HF_STEPS = 2
+RODENT_TRAIN_ENVS = 64
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth
@@ -254,6 +295,15 @@ TOL_ADMM_ENV = 1e-4
 TOL_UPDATE = 1e-4
 TOL_DELTA = 1e-2
 TOL_F64 = 1e-9
+# The raise above reads the card's own float32 rounding, so a defect in the
+# card's float32 path alone (TF32 left on, a reduced-precision library
+# path) would raise its own bound. So the card's float32-to-float64
+# distance is held against the CPU's: at most CARD_F32_RATIO times it,
+# floored at F32_FLOOR (a few float32 ulps, relative) where the CPU's is
+# near 0 on a near-exact quantity. On an H100 that ratio read 0.26-3.1
+# (PERF.md section 6); TF32 puts the card ~1e2-1e3 times further.
+CARD_F32_RATIO = 10.0
+F32_FLOOR = 1e-6
 UPDATE_STEPS = 3
 TRAIN_ITERATIONS = 2
 
@@ -270,6 +320,20 @@ TRAIN_ITERATIONS = 2
 # near tie, or stays off after the replay. Each hold prints its replays.
 TIE = 1e-2
 TIE_TRIES = 3
+# A kernel that biased the restart test would show as many flipped
+# restarts. A replay counts as a flip when the env's error before it was
+# over float32 noise (TIE_NOISE of the batch's scale; the plain version's
+# own float32-to-float64 distance reads ~1e-6 to 2e-5) and the replay
+# brings the env at least 1 / TIE_GAIN times nearer the kernel (it takes
+# the kernel's path: the error falls by orders of magnitude). A hold
+# fails when more than max(TIE_MIN_ENVS, ceil(TIE_SHARE * B)) envs
+# flipped. On an H100 a hold replayed 0-16 envs over batches of 4096,
+# 256, 128, 64, 8 and 1, of them at most 2 such flips; a kernel restarting
+# only when r > 1e-2 sum |g dz| flipped 89 of 4096 (PERF.md section 6).
+TIE_NOISE = 1e-5
+TIE_GAIN = 0.1
+TIE_SHARE = 1e-2
+TIE_MIN_ENVS = 6
 
 ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
             "dinv", "qacc_smooth", "qvel", "kcoef", "bcoef", "posr")
@@ -396,10 +460,12 @@ def param_vector(*modules):
 
 
 def train_phase(env, cfg, iterations, zero_counts, counts, smi,
-                label="train"):
-    """Phase 8 (and 12a): DMPOTrainer on ``env`` for ``iterations``; fails
-    on any gate. Returns every kernel's launches in the run, the trainer,
-    the final LoopState, the last metrics and the seconds of each
+                label="train", min_copies=1):
+    """Phase 8 (and 12a, 13e): DMPOTrainer on ``env`` for ``iterations``;
+    fails on any gate. Each target network's copies must be as scheduled,
+    and at least ``min_copies``; a network must move, and so must a target
+    that was copied. Returns every kernel's launches in the run, the
+    trainer, the final LoopState, the last metrics and the seconds of each
     iteration's rollout and updates."""
     import torch
     from flybody_tpu_torch.agents.train import DMPOTrainer
@@ -448,9 +514,11 @@ def train_phase(env, cfg, iterations, zero_counts, counts, smi,
         fail(f"{label}: wrong number of updates or transitions")
     periods = (cfg.dmpo.target_policy_update_period,
                cfg.dmpo.target_critic_update_period)
-    if (st.target_policy_copies, st.target_critic_copies) != tuple(
+    copies = {"target_policy": st.target_policy_copies,
+              "target_critic": st.target_critic_copies}
+    if tuple(copies.values()) != tuple(
             n_updates // p for p in periods) or min(
-                n_updates // p for p in periods) < 1:
+                n_updates // p for p in periods) < min_copies:
         fail(f"{label}: the target copies did not fire as scheduled")
     bad = [k for k, v in metrics.items()
            if not bool(torch.isfinite(torch.as_tensor(v)).all())]
@@ -463,7 +531,7 @@ def train_phase(env, cfg, iterations, zero_counts, counts, smi,
           f"critic_loss {float(metrics['critic_loss']):.4f}, "
           f"policy_loss_total {float(metrics['policy_loss_total']):.4f}, "
           f"mean_reward {float(metrics['mean_reward']):.4f}", flush=True)
-    if not min(moved.values()) > 0:
+    if not min(v for k, v in moved.items() if copies.get(k, 1)) > 0:
         fail(f"{label}: a network or its target did not move")
     print(f"{label}: {iterations} iterations of {cfg.num_envs} envs x "
           f"{cfg.unroll_length} control steps + {trainer.updates_per_iter} "
@@ -589,11 +657,16 @@ def update_check(learner, cfg, seed: int = 1, obs_pool=None,
             "card": ("card32", "card64"), "cpu": ("cpu32", "cpu64")}.items()}
         tol = TOL_DELTA if name == "params - init" else TOL_UPDATE
         bound = max(tol, F64_FACTOR * max(d["card"], d["cpu"]))
+        card_bound = CARD_F32_RATIO * max(d["cpu"], F32_FLOOR)
         print(f"{tag}: {name:24s} card f32 vs cpu f32 {d['32']:.3e} (f32 vs "
-              f"f64: cpu {d['cpu']:.3e}, card {d['card']:.3e}; tol "
-              f"{bound:.3g}); card f64 vs cpu f64 {d['64']:.3e}", flush=True)
+              f"f64: cpu {d['cpu']:.3e}, card {d['card']:.3e}, card tol "
+              f"{card_bound:.3g}; tol {bound:.3g}); card f64 vs cpu f64 "
+              f"{d['64']:.3e}", flush=True)
         if not d["64"] <= TOL_F64:
             fail(f"{tag} {name} in float64: {d['64']:.3e} > {TOL_F64:g}")
+        if not d["card"] <= card_bound:
+            fail(f"{tag} {name}: the card's f32 vs f64 {d['card']:.3e} > "
+                 f"{card_bound:.3g} ({CARD_F32_RATIO:g} x the CPU's)")
         if not d["32"] <= bound:
             fail(f"{tag} {name}: {d['32']:.3e} > {bound:.3g}")
 
@@ -760,6 +833,9 @@ def main() -> int:
     rnd_kw = dict(kl=32, kc=40, iterations=20, noslip_iterations=3,
                   power_iters=4)
 
+    # each B1 hold's replayed envs, by its label
+    tie_replays = {}
+
     def check_rows(label, tree, args, kwa):
         """solve_rows on the card against its plain version (float32, the
         bounds raised by float64) on ``args``; returns the kernel's
@@ -780,10 +856,19 @@ def main() -> int:
         want, replayed = replay_ties(SK, tree, args, kwa, got, want, trace)
         shown = [(e, i, *(float(f"{x:.3g}") for x in t))
                  for e, i, *t in replayed[:8]]
-        print(f"  {label} restart ties replayed in {len(replayed)} envs "
-              f"(env, iteration, |r| / sum |g dz|, error before, after; TIE "
-              f"{TIE:g}): {shown}{' ...' if len(replayed) > 8 else ''}",
-              flush=True)
+        B_h = qs.shape[-1]
+        cap = max(TIE_MIN_ENVS, math.ceil(TIE_SHARE * B_h))
+        flips = sum(1 for r in replayed
+                    if r[3] > TIE_NOISE and r[4] < TIE_GAIN * r[3])
+        print(f"  {label} restart ties replayed in {len(replayed)} envs of "
+              f"{B_h}, {flips} of them flips (cap {cap}; env, iteration, "
+              f"|r| / sum |g dz|, error before, after; TIE {TIE:g}): "
+              f"{shown}{' ...' if len(replayed) > 8 else ''}", flush=True)
+        tie_replays[label] = {"envs": len(replayed), "flips": flips,
+                              "share": flips / B_h, "cap": cap}
+        if flips > cap:
+            fail(f"{label}: restart flips replayed in {flips} envs > cap "
+                 f"{cap}")
         err = hold(label, ("f", "v", "qfrc", "dqacc"), got, want, want64,
                    rel32=rel32)
         qp = qs + want[3]
@@ -1089,8 +1174,8 @@ def main() -> int:
           f"path, {train_launched['solve_rows']} in training", flush=True)
 
     def env_phase(label, env, steps):
-        """Phases 9-11: reset B envs from a seeded CUDA generator, one
-        warm-up control step, then ``steps`` timed autoreset_step calls
+        """Phases 9-11 and 13: reset B envs from a seeded CUDA generator,
+        one warm-up control step, then ``steps`` timed autoreset_step calls
         with mid-range actions; fails unless solve_rows launched once per
         substep (and nothing else) and obs and reward are finite. Returns
         the final state, the launches and the seconds per control
@@ -1718,7 +1803,153 @@ def main() -> int:
     walls = {k: round(v, 1) for k, v in agent_s.items()}
     print(f"agents: wall s {json.dumps(walls)} | {smi}", flush=True)
 
-    # ---- 13. result ------------------------------------------------------
+    # ---- 13. rodent ------------------------------------------------------
+    from flybody_tpu_torch import rodent_envs
+    from flybody_tpu_torch.physics import types as T
+    t13 = time.perf_counter()
+    rodent_s = {}
+    # (a) rodent_two_touch, the rat on a floor: 20 substeps per control step
+    env_r = rodent_envs.rodent_two_touch()
+    mr = env_r.model
+    if env_r.n_substeps != 20:
+        fail(f"rodent: {env_r.n_substeps} substeps per control step")
+    state_r, launched_r, _ = env_phase("rodent", env_r, RODENT_STEPS)
+    rodent_s["two_touch"] = time.perf_counter() - t13
+    def lowered(label, env_x, data, ground, other=None, pitch=None):
+        """The first 4 envs of ``data`` (numpy), the root turned nose down
+        by ``pitch`` (with the joints at the model's qpos0) where given,
+        then lowered until the deepest contact of geom ``ground`` with a
+        geom of type ``other`` (any) lies 2 mm deep."""
+        mx = env_x.model
+        gt = np.asarray(mx.geom_type)
+        g1, g2 = COL._slot_identity(mx)[:2]
+        slots = mx.ix(np.nonzero((g1 == ground) & (
+            (gt[g2] == other) if other is not None else True))[0])
+        small_x = first_four(data)
+        if pitch is not None:
+            small_x["qpos"][7:] = mx.qpos0[7:, None].cpu().numpy()
+            small_x["qpos"][3:7] = np.array(
+                [np.cos(pitch / 2), 0.0, np.sin(pitch / 2), 0.0],
+                np.float32)[:, None]
+        for _ in range(6):
+            d4 = F.fwd_position(mx, bridge.data_from_numpy(small_x, mx))
+            dmin = COL._narrowphase(mx, d4)[0][slots].amin(dim=0)
+            small_x["qpos"][2] -= dmin.cpu().numpy() + 0.002
+        print(f"{label}: 4 envs lowered onto geom {ground} to a deepest "
+              f"pair at {dmin.cpu().numpy().round(4).tolist()} before the "
+              f"last step", flush=True)
+        return small_x
+
+    def contacts_taken(label, mx, out, ground, other=None):
+        """Fail unless each env's substep ``out`` selected a penetrating
+        contact of geom ``ground`` (with a geom of type ``other``) among
+        the fused solver's cones."""
+        con = out.contact
+        hit = con.g1 == ground
+        if other is not None:
+            hit = hit & (mx.const(np.asarray(mx.geom_type),
+                                  torch.int64)[con.g2.long()] == other)
+        pen = hit & (con.dist < 0)
+        lay_x = SF.fused_layout(mx, C.efc_meta(mx))
+        cone_x = mx.ix(np.concatenate([np.arange(a, b)
+                                       for a, b in lay_x["cone"]]))
+        taken = torch.gather(pen, 0, cone_x[out.sol_cone_sel.long()])
+        print(f"{label}: contacts selected {hit.sum(0).tolist()}, "
+              f"penetrating {pen.sum(0).tolist()}, among the solver's "
+              f"{lay_x['k_cone']} cones {taken.sum(0).tolist()}", flush=True)
+        if not bool(taken.any(0).all()):
+            fail(f"{label}: a penetrating contact did not reach the solver "
+                 "in every env")
+
+    # (b) the heightfield arenas, B envs each; then 4 envs of
+    # gaps' and bowl's final states lowered onto the terrain, one substep
+    # card vs CPU with penetrating heightfield contacts in the solver
+    hf_contacts = 0
+    for name, label in (("rodent_run_gaps", "gaps"),
+                        ("rodent_escape_bowl", "bowl"),
+                        ("rodent_maze_forage", "maze")):
+        t = time.perf_counter()
+        env_h = getattr(rodent_envs, name)()
+        st_h, launched_h, _ = env_phase(f"rodent_{label}", env_h,
+                                        RODENT_HF_STEPS)
+        con = st_h.data.contact
+        ter = env_h.model.names["geom"]["terrain"]
+        sel_h = con.g1 == ter
+        pen_h = sel_h & (con.dist < 0)
+        print(f"rodent_{label}: heightfield contacts selected "
+              f"{int(sel_h.sum()) / B:.2f} per env "
+              f"({int(sel_h.any(0).sum())} of {B} envs), "
+              f"penetrating {int(pen_h.sum()) / B:.2f} per env",
+              flush=True)
+        rows["solve_rows"][f"launches_rodent_{label}"] = \
+            launched_h["solve_rows"]
+        if label != "maze":
+            hf_contacts += int(sel_h.sum())
+            touch = lowered(f"rodent_{label} touching", env_h, st_h.data,
+                            ter)
+            out = substep_check(
+                f"rodent_{label} touching", env_h.model, "fused",
+                small=touch, cpu={dt_: getattr(rodent_envs, name)(
+                    device="cpu", dtype=dt_).model for dt_ in (f32, f64)})
+            contacts_taken(f"rodent_{label} touching", env_h.model, out, ter)
+            del out
+        del env_h, st_h, con, sel_h, pen_h
+        rodent_s[label] = time.perf_counter() - t
+    if hf_contacts == 0:
+        fail("rodent: no heightfield contact selected on gaps or bowl")
+    # (c) one substep of 4 envs card vs CPU from the final state (in
+    # hold_rows below) and from a head-down state: the root pitched nose
+    # down (the joints at qpos0) and lowered until the skull and jaw boxes
+    # press 2 mm into the floor, so the plane-box pairs run on the card
+    cpu_r = {dt_: rodent_envs.rodent_two_touch(device="cpu", dtype=dt_).model
+             for dt_ in (f32, f64)}
+    floor = mr.names["geom"]["floor"]
+    head = lowered("rodent head down", env_r, state_r.data, floor,
+                   T.GEOM_BOX, pitch=1.2)
+    out = substep_check("rodent head down", mr, "fused", small=head,
+                        cpu=cpu_r)
+    contacts_taken("rodent head down (plane-box)", mr, out, floor,
+                   T.GEOM_BOX)
+    del out
+    # (d) solve_rows at 96 rows over 73 dofs, the narrow instance, on the
+    # final state's inputs and on random inputs over the rat's tree
+    hold_rows("rodent", env_r, state_r, launched_r, lambda dt_: cpu_r[dt_],
+              (73, 96, SK.CPL_NARROW))
+    p_r = SK.random_rows_problem(B, seed=0, nbody=mr.nbody, kl=24, kc=24,
+                                 parent=np.asarray(mr.dof_parentid))
+    ld_r, dinv_r = TL.factor(mr.tree, torch.as_tensor(p_r["Ms"], dtype=f32,
+                                                      device=dev))
+    rnd_r = {k: torch.as_tensor(p_r[k], device=dev).to(
+        torch.int32 if p_r[k].dtype == np.int32 else f32)
+        for k in fly_args if k not in ("ld", "dinv")}
+    rnd_r.update(ld=ld_r, dinv=dinv_r)
+    rows["solve_rows"]["max_abs_err_rodent_random"] = check_rows(
+        "rodent_random", mr.tree, rnd_r, dict(rnd_kw, kl=24, kc=24))[1]
+    del rnd_r, p_r, state_r
+    rodent_s["holds"] = time.perf_counter() - t13 - sum(rodent_s.values())
+    # (e) DMPOTrainer with configs/train_config_two_taps.yaml's networks at
+    # its 64 envs, training once its first rollout is in replay
+    t = time.perf_counter()
+    rcfg = TrainerConfig(
+        num_envs=RODENT_TRAIN_ENVS, unroll_length=AGENT_UNROLL,
+        replay_capacity=1_000_000,
+        min_replay_size=RODENT_TRAIN_ENVS * AGENT_UNROLL,
+        samples_per_insert=32.0, policy_layers=(512, 512, 512, 512),
+        critic_layers=(512, 512, 512, 256),
+        dmpo=DMPOConfig(batch_size=512, n_step=5, num_samples=20))
+    launched_rt, tr_r, loop_r = train_phase(
+        env_r, rcfg, 1, zero_counts, counts, smi, label="rodent_train",
+        min_copies=0)[:3]
+    hold_final("rodent_train", mr, loop_r.env_states.data, 96)
+    update_check(tr_r.learner, rcfg.dmpo, tag="rodent update")
+    rows["solve_rows"]["launches_rodent_train"] = launched_rt["solve_rows"]
+    del tr_r, loop_r
+    rodent_s["train"] = time.perf_counter() - t
+    print(f"rodent: wall s "
+          f"{json.dumps({k: round(v, 1) for k, v in rodent_s.items()})} | "
+          f"{smi}", flush=True)
+
+    # ---- 14. result ------------------------------------------------------
     shapes = {"": (m.nv, R, m.tree), "_imitation": (mi.nv, R_i, mi.tree),
               "_flight": (mf.nv, R_f, mf.tree)}
     occupancy = [(name, at, SK.kernel_info(name, nv_, R_, tr.nM,
@@ -1728,6 +1959,8 @@ def main() -> int:
                  for at, (nv_, R_, tr) in shapes.items()]
     occupancy += [("solve_rows", "_vision", SK.kernel_info(
         "solve_rows", mv.nv, R_v, mv.tree.nM, SK.pack_tables(mv.tree))),
+                  ("solve_rows", "_rodent", SK.kernel_info(
+        "solve_rows", mr.nv, 96, mr.tree.nM, SK.pack_tables(mr.tree))),
                   ("upsolve_yd", "", SK.kernel_info(
         "upsolve_yd", m.nv, R, m.tree.nM, SK.pack_tables(m.tree))),
                   ("admm_iterate", "", AK.kernel_info(n_rows))]
@@ -1750,6 +1983,10 @@ def main() -> int:
             "warps_per_sm": info["warps_per_sm"],
             **({"clusters": info["clusters"]} if info.get("clusters")
                else {})}
+    # beside each max_abs_err*: the envs its hold replayed at restart ties
+    for label, rep in tie_replays.items():
+        key = "" if label == "fly" else "_" + label.replace(" ", "_")
+        rows["solve_rows"][f"replayed{key}"] = rep
     order = ("solve_rows", "apgd_iterate", "upsolve_build_yd", "upsolve_yd",
              "admm_iterate")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)

@@ -11,7 +11,7 @@ intention_network_factory.py + vis_net.py):
   latent sampled on the actor path, an optional latent KL term, and a
   decoder that can be restored from a donor and frozen (transfer)
 * "vision": the fly's two eyes through VisNetFly in both networks; the
-  rodent's one-camera VisNetRodent comes with the rodent (ROADMAP A7)
+  rodent's one-camera VisNetRodent comes with its camera (ROADMAP A7d)
 
 Kickstarting distills from a frozen teacher policy by KL (reference
 learning_dmpo.py:361-373).
@@ -233,7 +233,7 @@ class DMPOTrainer(TrainerBase):
             if "egocentric_camera" in self.obs_slices:
                 raise NotImplementedError(
                     "the one-camera VisNetRodent is not ported yet "
-                    "(ROADMAP A7)")
+                    "(ROADMAP A7d)")
             raise ValueError(
                 f"vision network needs {EYE_KEYS} observations; the env "
                 f"has {sorted(self.obs_slices)}")

@@ -51,6 +51,9 @@ class Task:
     # True when init_state ignores the generator: auto-reset then builds
     # one fresh state at B=1 and broadcasts it
     deterministic_init: bool = False
+    # True when reward_step draws: the env then passes its generator as
+    # ``reward_step(..., generator=state.rng)``
+    step_draws: bool = False
 
     def init_state(self, model: Model, data: Data, generator):
         """Episode-initial qpos/qvel and task state for the batch."""
@@ -178,8 +181,9 @@ class FlyEnv:
             sensors.append(data.sensordata)
         sensor_mean = torch.stack(sensors).mean(dim=0)
         data, task_state = task.after_substeps(model, data, task_state)
+        draws = {"generator": state.rng} if task.step_draws else {}
         reward, terminated, discount, task_state = task.reward_step(
-            model, data, task_state, sensor_mean)
+            model, data, task_state, sensor_mean, **draws)
         # observations see the post-reward task state
         obs = task.observations(model, data, task_state, sensor_mean)
         # NaN hygiene at the env boundary: a blown-up episode terminates

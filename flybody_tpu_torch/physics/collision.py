@@ -15,10 +15,12 @@ stable sort so ties resolve to the lower index exactly as ``lax.top_k``.
 Analytic pair functions ported: sphere-sphere, sphere-capsule and
 capsule-capsule (the pairs of the walk_on_ball model), plane-sphere,
 plane-capsule, plane-ellipsoid and plane-cylinder (the floor pairs of
-walk_imitation), and heightfield-sphere, -capsule, -ellipsoid and
--cylinder (the terrain pairs of vision_guided_flight). The heightfield
-makers read the model's terrain, so ``_dispatch`` takes the model. The box
-pairs raise NotImplementedError.
+walk_imitation), heightfield-sphere, -capsule, -ellipsoid and -cylinder
+(the terrain pairs of vision_guided_flight and the rat's arenas), and
+plane-box, sphere-box and capsule-box (the rat's skull and jaw boxes).
+The heightfield makers read the model's terrain, so ``_dispatch`` takes
+the model. Every pair of the JAX package is ported; ``_dispatch`` raises
+NotImplementedError for a pair neither package has.
 """
 
 from __future__ import annotations
@@ -125,6 +127,27 @@ def _plane_cylinder(p1, m1, s1, p2, m2, s2):
     return dd, pos, n[:, None].expand(pts.shape)
 
 
+_BOX_CORNERS = np.array([[sx, sy, sz] for sx in (-1., 1.)
+                         for sy in (-1., 1.) for sz in (-1., 1.)])
+
+
+def _plane_box(p1, m1, s1, p2, m2, s2):
+    """Plane vs box: the 4 deepest of the box's 8 corners, by a stable
+    sort (a box lying flat has exact ties; the lower corner index goes
+    first, as in the JAX package's argsort)."""
+    n = m1[..., :, 2, :]
+    corners = torch.as_tensor(_BOX_CORNERS, dtype=p2.dtype,
+                              device=p2.device)
+    corner_l = corners[None, :, :, None] * s2[:, None]      # (P, 8, 3, .)
+    pts = p2[:, None] + bq.matvec(m2[:, None], corner_l)    # (P, 8, 3, B)
+    dd = torch.sum(pts * n[:, None], dim=-2) - _dot(p1, n)  # (P, 8, B)
+    idx = torch.argsort(dd, dim=1, stable=True)[:, :4]      # (P, 4, B)
+    d4 = torch.gather(dd, 1, idx)
+    pos8 = pts - 0.5 * dd[..., None, :] * n[:, None]
+    pos = torch.gather(pos8, 1, idx[:, :, None].expand(-1, -1, 3, -1))
+    return d4, pos, n[:, None].expand(pos.shape)
+
+
 def _sphere_sphere(p1, m1, s1, p2, m2, s2):
     dvec = p2 - p1
     L = _norm(dvec)
@@ -150,6 +173,53 @@ def _sphere_capsule(p1, m1, s1, p2, m2, s2):
     hl = s2[..., 1:2, :]
     c = _closest_on_seg(p1, p2 - hl * axis, p2 + hl * axis)
     return _sphere_sphere(p1, m1, s1, c, m2, _zero_r(s2))
+
+
+def _sphere_box(p1, m1, s1, p2, m2, s2):
+    """Sphere vs box in the box frame: outside, the nearest box point;
+    inside, the face of least penetration (the first of equal ones, as
+    argmin in both libraries), its sign that of the centre's coordinate
+    (sign(c + 1e-30), so a centre on the mid-plane takes +)."""
+    r = s1[..., 0:1, :]
+    c = bq.matvec_t(m2, p1 - p2)
+    q = torch.minimum(torch.maximum(c, -s2), s2)
+    dvec = c - q
+    L = _norm(dvec)
+    outside = L > 1e-9
+    pen = s2 - torch.abs(c)                               # (P, 3, B)
+    amin = torch.argmin(pen, dim=-2, keepdim=True)        # (P, 1, B)
+    pen_min = torch.gather(pen, -2, amin)
+    sgn = torch.sign(torch.gather(c, -2, amin) + 1e-30)
+    onehot = (torch.arange(3, device=c.device)[None, :, None]
+              == amin).to(c.dtype)
+    n_in = onehot * sgn
+    n_local = torch.where(outside, dvec / torch.clamp(L, min=1e-12), n_in)
+    dist = torch.where(outside[..., 0, :], (L - r)[..., 0, :],
+                       -(pen_min + r)[..., 0, :])
+    q_surf = torch.where(outside, q, c + n_in * pen_min)
+    n = bq.matvec(m2, n_local)
+    pos_w = p2 + bq.matvec(m2, q_surf)
+    pos = pos_w + 0.5 * dist[..., None, :] * (-n)
+    return dist[:, None], pos[:, None], (-n)[:, None]
+
+
+def _capsule_box(p1, m1, s1, p2, m2, s2):
+    """Capsule vs box: sphere-box at both caps and at the segment point
+    nearest the box centre; the 2 deepest of the 3, by a stable sort."""
+    axis = m1[..., :, 2, :]
+    hl = s1[..., 1:2, :]
+    rs = _zero_r(s1)
+    e1, e2 = p1 - hl * axis, p1 + hl * axis
+    mid = _closest_on_seg(p2, e1, e2)
+    outs = [_sphere_box(c, m1, rs, p2, m2, s2) for c in (e1, e2, mid)]
+    d3 = torch.stack([o[0][:, 0] for o in outs], dim=1)   # (P, 3, B)
+    idx = torch.argsort(d3, dim=1, stable=True)[:, :2]
+    idx3 = idx[:, :, None].expand(-1, -1, 3, -1)
+    pos = torch.gather(torch.stack([o[1][:, 0] for o in outs], dim=1), 1,
+                       idx3)
+    nrm = torch.gather(torch.stack([o[2][:, 0] for o in outs], dim=1), 1,
+                       idx3)
+    return torch.gather(d3, 1, idx), pos, nrm
 
 
 def _capsule_capsule(p1, m1, s1, p2, m2, s2):
@@ -292,9 +362,12 @@ _PAIR_FN = {
     (T.GEOM_PLANE, T.GEOM_CAPSULE): _plane_capsule,
     (T.GEOM_PLANE, T.GEOM_ELLIPSOID): _plane_ellipsoid,
     (T.GEOM_PLANE, T.GEOM_CYLINDER): _plane_cylinder,
+    (T.GEOM_PLANE, T.GEOM_BOX): _plane_box,
     (T.GEOM_SPHERE, T.GEOM_SPHERE): _sphere_sphere,
     (T.GEOM_SPHERE, T.GEOM_CAPSULE): _sphere_capsule,
+    (T.GEOM_SPHERE, T.GEOM_BOX): _sphere_box,
     (T.GEOM_CAPSULE, T.GEOM_CAPSULE): _capsule_capsule,
+    (T.GEOM_CAPSULE, T.GEOM_BOX): _capsule_box,
 }
 
 
@@ -314,10 +387,7 @@ def _dispatch(m: Model, t1: int, t2: int):
         return fn
     if t1 == T.GEOM_HFIELD and t2 in _HFIELD_MAKERS:
         return _HFIELD_MAKERS[t2](m, 0)
-    raise NotImplementedError(
-        f"collision pair {(t1, t2)} is not ported yet (the box pairs "
-        "_plane_box, _sphere_box and _capsule_box are queued in ROADMAP.md "
-        "A4, with the rodent of A7)")
+    raise NotImplementedError(f"collision pair {(t1, t2)}")
 
 
 def _pair_groups(m: Model):
@@ -490,15 +560,17 @@ def _ccd_stage(m: Model, d: Data):
 
         # warm start: match this step's lanes to the previous substep's
         # lanes of the same class by slot id; unmatched lanes get u0 = 0
-        # and reseed from the center line inside minimize_support
+        # and reseed from the center line inside minimize_support, and so
+        # does a lane whose previous direction is not finite (an env that
+        # blew up and was auto-reset keeps its old warm start)
         u0 = None
         if d.ccd_warm_u.shape[0]:
             old_id = d.ccd_warm_id[off:off + N]            # (N, B)
             hit = sel[:, None, :] == old_id[None, :, :]    # (N, N, B)
             src = torch.argmax(hit.to(torch.int8), dim=1)  # (N, B)
             old_u = rows.take(d.ccd_warm_u[off:off + N], src)
-            u0 = torch.where(hit.any(dim=1)[:, None, :], old_u,
-                             torch.zeros_like(old_u))
+            ok = hit.any(dim=1) & torch.isfinite(old_u).all(dim=1)
+            u0 = torch.where(ok[:, None, :], old_u, torch.zeros_like(old_u))
         dist, pos, nrm, nu = ccd_mod.narrowphase(
             p1, R1, prm1, p2, R2, prm2, iters=m.ccd_iters, u0=u0,
             with_nu=True)

@@ -352,8 +352,10 @@ def solve_fused(m: Model, d: Data, iterations: int | None = None,
                                  nl)[:, 0]
     else:
         warm_lim = d.warm_lim
-    apgd_v = v_new.to(d.apgd_v.dtype) if d.apgd_v.shape[0] == R \
-        else d.apgd_v
+    # an env whose solve failed keeps its power vector: a non-finite one
+    # would start every later solve of the env (auto-reset keeps it)
+    apgd_v = torch.where(ok, v_new.to(d.apgd_v.dtype), d.apgd_v) \
+        if d.apgd_v.shape[0] == R else d.apgd_v
     # persist the row selection + raw forces for the window's update
     # substeps (consumed when fresh=False)
     if idx_lim is None or idx_lim.shape[0] != d.sol_lim_sel.shape[0]:

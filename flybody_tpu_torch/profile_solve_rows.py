@@ -3,9 +3,10 @@
     python3 -m flybody_tpu_torch.profile_solve_rows [--task TASK] [--stages]
         [PKG_DIR ...]
 
-Builds the solve_rows inputs of TASK (a ``fly_envs`` factory:
-walk_on_ball by default, R 152 rows, the narrow instance; walk_imitation,
-R 176, the wide one; flight_imitation, R 64 over 42 dofs, the narrow one)
+Builds the solve_rows inputs of TASK (a ``train_dmpo --task``:
+walk_on_ball by default, R 152 rows, the narrow instance;
+walk_imitation, R 176, the wide one; flight_imitation, R 64 over 42 dofs,
+and rodent_two_touch, R 96 over 73, the narrow one)
 on the card: B=4096, float32, a reset from a seeded CUDA generator and two
 control steps at mid-range actions. Then, for each
 package directory
@@ -126,10 +127,10 @@ def cut(src: str, cuts) -> str:
 def make_inputs(task: str = "walk_on_ball", B: int = 4096) -> None:
     """``task``'s solve_rows inputs after two control steps, saved."""
     import torch
-    from flybody_tpu_torch import fly_envs
     from flybody_tpu_torch.physics import forward as F
     from flybody_tpu_torch.physics import solver_fused as SF
-    env = getattr(fly_envs, task)()
+    from flybody_tpu_torch.train_dmpo import make_env
+    env = make_env(task, "cuda")
     lo, hi = env.action_spec()
     mid = torch.as_tensor((lo + hi) / 2, dtype=torch.float32,
                           device="cuda")[None].expand(B, -1)
@@ -176,7 +177,7 @@ def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="walk_on_ball",
                     choices=("walk_on_ball", "walk_imitation",
-                             "flight_imitation"))
+                             "flight_imitation", "rodent_two_touch"))
     ap.add_argument("--stages", action="store_true",
                     help="the full source only, with the stage kernels")
     ap.add_argument("packages", nargs="*", default=[PKG])

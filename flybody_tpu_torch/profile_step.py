@@ -2,17 +2,19 @@
 
     python3 -m flybody_tpu_torch.profile_step [B] [TASK]
 
-TASK is a ``fly_envs`` factory (walk_on_ball by default, walk_imitation,
-flight_imitation, vision_guided_flight). Prints (1) the host-clock time of
-each physics stage of one fresh and one update substep, each stage fenced
-by torch.cuda.synchronize, and of one batched ``env.reset`` (the auto-reset
-of a task that draws its initial states runs one every control step),
-(2) on a task with eyes, the eye render as a stage of its own (both eyes,
-run twice per control step: the step's obs and the auto-reset's fresh
-batch): its host-clock ms, its device time and launches, its peak device
-memory and its share of the control step, and (3) a torch.profiler trace
-of one control step: device time by kernel, the device-busy total against
-the wall time, and the number of kernel launches. Needs a CUDA device.
+TASK is a ported ``train_dmpo --task`` (walk_on_ball by default,
+walk_imitation, flight_imitation, vision_guided_flight, rodent_two_touch,
+rodent_escape_bowl, rodent_run_gaps, rodent_maze_forage). Prints (1) the
+host-clock time of each physics stage of one fresh and one update substep,
+each stage fenced by torch.cuda.synchronize, and of one batched
+``env.reset`` (the auto-reset of a task that draws its initial states runs
+one every control step), (2) on a task with eyes, the eye render as a
+stage of its own (both eyes, run twice per control step: the step's obs
+and the auto-reset's fresh batch): its host-clock ms, its device time and
+launches, its peak device memory and its share of the control step, and
+(3) a torch.profiler trace of one control step: device time by kernel, the
+device-busy total against the wall time, and the number of kernel
+launches. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import time
 
 import torch
 
-from flybody_tpu_torch import fly_envs
 from flybody_tpu_torch.physics import actuation as A
 from flybody_tpu_torch.physics import collision as COL
 from flybody_tpu_torch.physics import constraint as C
@@ -31,6 +32,7 @@ from flybody_tpu_torch.physics import kinematics as K
 from flybody_tpu_torch.physics import passive as P
 from flybody_tpu_torch.physics import sensors as S
 from flybody_tpu_torch.physics import smooth as SM
+from flybody_tpu_torch.train_dmpo import make_env
 
 
 def _stages(col_update: bool):
@@ -100,7 +102,7 @@ def eye_render(env, data) -> dict:
 
 
 def main(B: int = 4096, task: str = "walk_on_ball") -> None:
-    env = getattr(fly_envs, task)()
+    env = make_env(task, "cuda")
     lo, hi = env.action_spec()
     mid = torch.as_tensor((lo + hi) / 2, dtype=torch.float32,
                           device="cuda")[None].expand(B, -1)

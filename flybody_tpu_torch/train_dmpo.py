@@ -8,13 +8,14 @@ one device. Usage:
 It runs on "cuda" and raises without it unless ``--device cpu`` is given.
 ``--test`` runs a small smoke configuration printing stats. The flags are
 those of the JAX package's train_dmpo.py. The tasks walk_on_ball, template,
-walk_imitation, flight_imitation and vision_guided_flight are ported, with
-the plain, intention (``--network intention`` and its five flags) and
-vision (``--network vision``) networks, multi-task training
+walk_imitation, flight_imitation, vision_guided_flight, rodent_two_touch,
+rodent_escape_bowl, rodent_run_gaps and rodent_maze_forage are ported,
+with the plain, intention (``--network intention`` and its five flags)
+and vision (``--network vision``) networks, multi-task training
 (``--task-envs task:n,task:n`` or a YAML ``task_envs``), decoder transfer
 (``--transfer-ckpt``: restore a donor's decoder and freeze it) and
-kickstarting (``--kickstart-ckpt``); the rodent and humanoid tasks raise
-NotImplementedError (ROADMAP A7).
+kickstarting (``--kickstart-ckpt``); rodent_walk_imitation and
+walk_humanoid raise NotImplementedError (ROADMAP A7c).
 """
 
 from __future__ import annotations
@@ -28,11 +29,14 @@ TASKS = ("walk_on_ball", "template", "walk_imitation", "flight_imitation",
          "rodent_maze_forage", "rodent_two_touch", "rodent_walk_imitation",
          "walk_humanoid")
 
-# the ported tasks, by CLI name -> fly_envs factory
+# the ported tasks, by CLI name -> factory of fly_envs (rodent_envs for
+# the rodent tasks)
 PORTED = {"walk_on_ball": "walk_on_ball", "template": "template_task",
           "walk_imitation": "walk_imitation",
           "flight_imitation": "flight_imitation",
-          "vision_guided_flight": "vision_guided_flight"}
+          "vision_guided_flight": "vision_guided_flight",
+          **{t: t for t in ("rodent_escape_bowl", "rodent_run_gaps",
+                            "rodent_maze_forage", "rodent_two_touch")}}
 
 # flags read only by the intention network, with their defaults: another
 # value with another network raises rather than being dropped
@@ -42,12 +46,13 @@ INTENTION_FLAGS = {"encoder_layers": "512,512",
 
 
 def make_env(name: str, device):
-    from flybody_tpu_torch import fly_envs
+    from flybody_tpu_torch import fly_envs, rodent_envs
     if name not in PORTED:
         raise NotImplementedError(
-            f"task {name!r} is not ported yet (ROADMAP A7: rodent and "
-            "humanoid)")
-    return getattr(fly_envs, PORTED[name])(device=device)
+            f"task {name!r} is not ported yet (ROADMAP A7c: tracking and "
+            "the humanoid)")
+    module = rodent_envs if name.startswith("rodent_") else fly_envs
+    return getattr(module, PORTED[name])(device=device)
 
 
 def parse_args(argv=None):

@@ -54,7 +54,11 @@ def test_import_leaves_jax_unloaded():
             "flybody_tpu_torch.agents.intention_networks, "
             "flybody_tpu_torch.agents.multitask, "
             "flybody_tpu_torch.agents.evaluator, "
-            "flybody_tpu_torch.utils.rendering; "
+            "flybody_tpu_torch.utils.rendering, "
+            "flybody_tpu_torch.rodent_envs, flybody_tpu_torch.models.rodent, "
+            "flybody_tpu_torch.envs.rodent_walker, "
+            "flybody_tpu_torch.tasks.rodent_tasks, "
+            "flybody_tpu_torch.tasks.rodent_arenas; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -96,3 +100,16 @@ def test_flight_and_template_need_cuda_unless_told_otherwise(factory):
     if factory == "flight_imitation":
         assert env.task.dataset.lengths.device.type == "cpu"
         assert env.task.wbpg.table.device.type == "cpu"
+
+
+@pytest.mark.parametrize("factory", ["rodent_two_touch", "rodent_escape_bowl",
+                                     "rodent_run_gaps", "rodent_maze_forage"])
+def test_rodent_envs_need_cuda_unless_told_otherwise(factory):
+    from flybody_tpu_torch import rodent_envs
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    make = getattr(rodent_envs, factory)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    env = make(device="cpu")
+    assert env.device.type == "cpu" and env.model.nv == 73

@@ -265,8 +265,10 @@ def test_trainer_needs_cuda_unless_told_otherwise():
         DMPOTrainer(_ToyEnv(), TrainerConfig(network="vision"))
     assert train_dmpo.make_env("vision_guided_flight", "cpu").device == \
         torch.device("cpu")
+    assert train_dmpo.make_env("rodent_escape_bowl", "cpu").device == \
+        torch.device("cpu")
     with pytest.raises(NotImplementedError, match="A7"):
-        train_dmpo.make_env("rodent_escape_bowl", "cpu")
+        train_dmpo.make_env("rodent_walk_imitation", "cpu")
 
 
 class _TaskToyEnv(_ToyEnv):
