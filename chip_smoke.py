@@ -165,11 +165,46 @@ Phases (each prints its lines; any failure exits non-zero):
               once that rollout is in replay: exactly 200 launches,
               solve_rows held on its final state at B=64, three learner
               updates card vs CPU as in phase 8
- 14. registers, shared memory, resident blocks and warps per SM, local
+ 14. tracking multi-clip mocap tracking on the synthetic clips (solve_rows
+              at 96 rows, the narrow instance): (a) rodent_walk_imitation
+              (the foot-mods rat, nv 73, 20 substeps per control step) at
+              B=4096, float32, as phase 13 (reset from a seeded CUDA
+              generator, one warm-up control step, 5 timed
+              autoreset_step calls: exactly 20 solve_rows launches per
+              control step and no other kernel), obs, reward and every
+              reward channel finite, every clip drawn and every start
+              within its clip; (b) walk_humanoid (the CMU humanoid, nv 62,
+              6 substeps of 5 ms) the same way, exactly 6 launches per
+              control step; (c) for each, one substep of 4 envs of the
+              final state on the card against the CPU as in phase 4, and
+              the task's observations, reward, channels, termination and
+              discount of 64 envs of the final state card vs CPU (bounds
+              raised by the CPU's float32-to-float64 distance); (d)
+              solve_rows against its plain version on each final state
+              (R 96 over nv 73 and nv 62) and on random inputs over the
+              humanoid's tree, timed with and without its loop; (e)
+              inverse kinematics (autograd through the kinematics) of the
+              rat's sites at clip 0's 120 frames from joints perturbed by
+              a seeded 0.1 rad: 20 iterations card vs CPU, the site error
+              falling over 200 iterations, the ms per iteration; (f)
+              DMPOTrainer with configs/train_config_rodent_imitation.yaml's
+              intention networks (parsed by train_dmpo) at its 168 envs,
+              one iteration of unroll 5 training once that rollout is in
+              replay (a replay ring of 100,000): exactly 100 launches,
+              solve_rows held on its final state, three learner updates
+              card vs CPU as in phase 8; its checkpoint restored by
+              configs/train_config_gaps_transfer.yaml's trainer
+              (--transfer-ckpt) as its decoder, bit-identical to the
+              donor's before and after one iteration (100 launches), the
+              encoder moved; (g) python -m flybody_tpu_torch.render_stac
+              --num-clips 1 --n-steps 5 into the temp directory (its
+              frames uint8 and showing the rat), the playback's host ms
+              per frame, no kernel launched
+ 15. registers, shared memory, resident blocks and warps per SM, local
      (spill) bytes and apgd_iterate's active clusters of every kernel
      (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes,
-     solve_rows at the vision and rodent shapes), also as each kernel
-     row's
+     solve_rows at the vision, rodent and humanoid shapes), also as each
+     kernel row's
      "occupancy"; the kernel table as JSON ("launches" on the main path of
      phase 3 or 6-7, "launches_train" in phase 8, solve_rows'
      "launches_imitation", "ms_imitation", "plain_ms_imitation" and
@@ -180,7 +215,10 @@ Phases (each prints its lines; any failure exits non-zero):
      "_transfer", "_multitask_walk_on_ball", "_multitask_walk_imitation",
      "_eval" and "_render"; "*_rodent" keys in phase 13 with
      "launches_rodent_gaps", "_bowl", "_maze" and "_train",
-     "max_abs_err_rodent_random" and "_rodent_train"; beside them, each
+     "max_abs_err_rodent_random" and "_rodent_train"; "*_rodent_imitation"
+     and "*_humanoid" keys in phase 14 with "launches_tracking_train" and
+     "_tracking_transfer", "max_abs_err_humanoid_random" and
+     "_tracking_train"; beside them, each
      hold's "replayed*" envs, flips, share and cap; upsolve_yd's
      "*_imitation" and "*_flight" keys in phases 9-10, with its library
      yardstick's "library_ms_*"; upsolve_build_yd's and apgd_iterate's
@@ -225,6 +263,21 @@ RENDER_STEPS = 5
 RODENT_STEPS = 5
 RODENT_HF_STEPS = 2
 RODENT_TRAIN_ENVS = 64
+# phase 14: the tracking envs' control steps at B (a, b), the envs of the
+# card-vs-CPU task check (c), the inverse kinematics' step size, momentum
+# and iterations (e: held card vs CPU, then timed), the unroll and replay
+# ring of the tracking trainers (f; unroll 5 keeps the script well inside
+# its time limit on a slow host; the reference config's 2829 obs floats a
+# transition twice over: 2.3 GB), the playback's frames (g)
+TRACK_STEPS = 5
+TASK_B = 64
+IK_LR = 0.02
+IK_BETA = 0.9
+IK_HOLD_STEPS = 20
+IK_STEPS = 200
+TRACK_UNROLL = 5
+TRACK_REPLAY = 100_000
+STAC_FRAMES = 5
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth
@@ -306,6 +359,22 @@ CARD_F32_RATIO = 10.0
 F32_FLOOR = 1e-6
 UPDATE_STEPS = 3
 TRAIN_ITERATIONS = 2
+
+# The tracking task's outputs (observations, reward and its channels) of
+# the same float32 state on the card and on the CPU: the same formulas in
+# another summation order, over reference features that each side's
+# forward kinematics computed in float32 (~1e-6 relative apart): max_rel
+# 1e-4 per output, raised to F64_FACTOR times the CPU's float32-to-float64
+# distance as for the substep. Termination (error > threshold) and
+# discount must agree except where an env's termination error lies within
+# TIE_TERM of the threshold.
+TOL_TASK = 1e-4
+TIE_TERM = 1e-4
+# Inverse kinematics: 20 momentum steps on the card against the same steps
+# on the CPU, float32, from the same start: the qpos change and the site
+# error by relative norm, 1e-4 raised to F64_FACTOR times the CPU's
+# float32-to-float64 distance; a wrong gradient moves a step by O(lr g).
+TOL_IK = 1e-4
 
 # APGD's restart test r = sum(g (z_new - z)) > 0 is its one discontinuous
 # decision. Where |r| is a small share of sum |g (z_new - z)|, the kernel's
@@ -1949,7 +2018,281 @@ def main() -> int:
           f"{json.dumps({k: round(v, 1) for k, v in rodent_s.items()})} | "
           f"{smi}", flush=True)
 
-    # ---- 14. result ------------------------------------------------------
+    # ---- 14. tracking ----------------------------------------------------
+    from flybody_tpu_torch import render_stac, train_dmpo
+    from flybody_tpu_torch.inverse_kinematics import qpos_from_site_xpos
+    from flybody_tpu_torch.physics import kinematics as K
+    t14 = time.perf_counter()
+    track_s = {}
+
+    def head(data, n):
+        """The numpy state of the first ``n`` envs of ``data``."""
+        return {k: ({kk: vv[..., :n] for kk, vv in v.items()}
+                    if isinstance(v, dict) else v[..., :n])
+                for k, v in bridge.to_numpy(data).items()}
+
+    def task_check(label, env_x, st, cpu_envs):
+        """(c) The tracking task's observations, reward, channels,
+        termination and discount of the first TASK_B envs of ``st`` on the
+        card against the CPU envs' (float32; each bound raised by the CPU's
+        float32-to-float64 distance). Termination and discount must agree
+        but where the env's termination error lies within TIE_TERM of the
+        threshold."""
+        small = head(st.data, TASK_B)
+        ts_small = {k: v[:TASK_B] for k, v in st.task_state.items()}
+        outs = {}
+        for tag, e in (("card", env_x), (f32, cpu_envs[f32]),
+                       (f64, cpu_envs[f64])):
+            mm, task = e.model, e.task
+            dd = bridge.data_from_numpy(small, mm)
+            tt = {k: v.to(mm.device) for k, v in ts_small.items()}
+            sm = dd.sensordata
+            vals = dict(task.observations(mm, dd, tt, sm))
+            r, term, disc = task.reward_term_discount(mm, dd, tt, sm)
+            vals.update({f"channel {k}": v for k, v in
+                         task.reward_factors(mm, dd, tt, sm).items()},
+                        reward=r)
+            err = task._reward(mm, dd, tt)[2]
+            outs[tag] = ({k: v.cpu() for k, v in vals.items() if v.numel()},
+                         term.cpu(), disc.cpu(), err.cpu())
+        worst = (0.0, "", 0.0)
+        for k, c32 in outs["card"][0].items():
+            r32, r64 = outs[f32][0][k], outs[f64][0][k]
+            rel, rel32 = max_rel(c32, r32), max_rel(r32, r64)
+            bound = max(TOL_TASK, F64_FACTOR * rel32)
+            if not rel <= bound:
+                fail(f"{label} task {k}: card vs cpu max_rel {rel:.3e} > "
+                     f"{bound:.3g}")
+            worst = max(worst, (rel / bound, k, rel))
+        thr = env_x.task.termination_error_threshold
+        near = (outs[f32][3] - thr).abs() <= TIE_TERM * thr
+        differ = ((outs["card"][1] != outs[f32][1])
+                  | (outs["card"][2] != outs[f32][2])) & ~near
+        print(f"{label}: task outputs at B={TASK_B} card vs cpu, "
+              f"{len(outs['card'][0])} outputs within their bounds (nearest "
+              f"its bound: {worst[1]} max_rel {worst[2]:.3e}); terminated "
+              f"{int(outs['card'][1].sum())}, discount 0 in "
+              f"{int((outs['card'][2] == 0).sum())}, termination or "
+              f"discount apart in {int(differ.sum())} envs (near the "
+              f"threshold {int(near.sum())})", flush=True)
+        if bool(differ.any()):
+            fail(f"{label}: termination or discount differs card vs cpu")
+
+    # (a) rodent_walk_imitation (the foot-mods rat, 20 substeps of 1 ms)
+    # and (b) walk_humanoid (6 substeps of 5 ms): B envs as env_phase runs
+    # them, every clip drawn and every channel finite; (c) a substep of 4
+    # envs card vs CPU and (d) solve_rows held on the final state, by
+    # hold_rows; the task's outputs card vs CPU
+    env_track = {}
+    for name, label, n_sub, nv_t in (
+            ("rodent_walk_imitation", "rodent_imitation", 20, 73),
+            ("walk_humanoid", "humanoid", 6, 62)):
+        t = time.perf_counter()
+        env_t = getattr(rodent_envs, name)()
+        if env_t.n_substeps != n_sub:
+            fail(f"{label}: {env_t.n_substeps} substeps per control step")
+        st_t, launched_t, _ = env_phase(label, env_t, TRACK_STEPS)
+        ts_t, clips_t = st_t.task_state, env_t.task.clips
+        drawn = sorted(ts_t["clip"].unique().tolist())
+        start_ok = bool(((ts_t["start"] >= 0) & (
+            ts_t["start"] < clips_t.lengths[ts_t["clip"]])).all())
+        ch = env_t.task.reward_factors(env_t.model, st_t.data, ts_t,
+                                       st_t.data.sensordata)
+        means = {k: float(f"{v.mean().item():.4g}") for k, v in ch.items()}
+        print(f"{label}: clips drawn {drawn} of {clips_t.num_clips}, starts "
+              f"within their clips {start_ok}; reward channels (mean) "
+              f"{json.dumps(means)}", flush=True)
+        if drawn != list(range(clips_t.num_clips)) or not start_ok:
+            fail(f"{label}: the clip and start draws")
+        if not all(bool(torch.isfinite(v).all()) for v in ch.values()):
+            fail(f"{label}: a reward channel is not finite")
+        cpu_t = {dt_: getattr(rodent_envs, name)(device="cpu", dtype=dt_)
+                 for dt_ in (f32, f64)}
+        hold_rows(label, env_t, st_t, launched_t,
+                  lambda dt_: cpu_t[dt_].model, (nv_t, 96, SK.CPL_NARROW))
+        task_check(label, env_t, st_t, cpu_t)
+        env_track[label] = (env_t, cpu_t)
+        del st_t
+        track_s[label] = time.perf_counter() - t
+    # (d) solve_rows at 96 rows over the humanoid's 62 dofs on random inputs
+    env_h, _ = env_track["humanoid"]
+    mh = env_h.model
+    p_h = SK.random_rows_problem(B, seed=0, nbody=mh.nbody, kl=24, kc=24,
+                                 parent=np.asarray(mh.dof_parentid))
+    ld_h, dinv_h = TL.factor(mh.tree, torch.as_tensor(p_h["Ms"], dtype=f32,
+                                                      device=dev))
+    rnd_h = {k: torch.as_tensor(p_h[k], device=dev).to(
+        torch.int32 if p_h[k].dtype == np.int32 else f32)
+        for k in fly_args if k not in ("ld", "dinv")}
+    rnd_h.update(ld=ld_h, dinv=dinv_h)
+    rows["solve_rows"]["max_abs_err_humanoid_random"] = check_rows(
+        "humanoid_random", mh.tree, rnd_h, dict(rnd_kw, kl=24, kc=24))[1]
+    del rnd_h, p_h
+    env_rat, cpu_rat = env_track["rodent_imitation"]
+    mrat, clips = env_rat.model, env_rat.task.clips
+
+    # (e) inverse kinematics: the rat's sites of clip 0's 120 frames, from
+    # joints perturbed by a seeded 0.1 rad; 20 iterations card vs CPU, the
+    # site error over 200 iterations on the card
+    t = time.perf_counter()
+    n_fr = int(clips.lengths[0])
+    sites = np.arange(mrat.nsite)
+    adr = np.asarray(env_rat.task.walker.joint_qposadr)
+    q_clip = clips.fields["qpos"][0, :n_fr].T.contiguous()
+    target = K.kinematics(mrat, io_mj.make_data(mrat, n_fr).replace(
+        qpos=q_clip)).site_xpos[mrat.ix(sites)]
+    q_start = q_clip.clone()
+    q_start[mrat.ix(adr)] += torch.as_tensor(
+        0.1 * np.random.RandomState(0).randn(len(adr), n_fr), dtype=f32,
+        device=dev)
+
+    def ik(model_x, steps):
+        q = q_start.to(model_x.device, model_x.dtype)
+        return qpos_from_site_xpos(
+            model_x, io_mj.make_data(model_x, n_fr).replace(qpos=q), sites,
+            target.to(model_x.device, model_x.dtype), adr, lr=IK_LR,
+            beta=IK_BETA, max_steps=steps)
+
+    zero_counts()
+    moved = {}
+    for tag, mx in (("card", mrat), (f32, cpu_rat[f32].model),
+                    (f64, cpu_rat[f64].model)):
+        res = ik(mx, IK_HOLD_STEPS)
+        moved[tag] = (res.qpos.cpu().double() - q_start.cpu().double(),
+                      res.site_error.cpu().double())
+    rel = rel_norm(moved["card"][0], moved[f32][0])
+    rel32 = rel_norm(moved[f32][0], moved[f64][0])
+    ik_bound = max(TOL_IK, F64_FACTOR * rel32)
+    err_rel = max_rel(moved["card"][1], moved[f32][1])
+    err32 = max_rel(moved[f32][1], moved[f64][1])
+    err_bound = max(TOL_IK, F64_FACTOR * err32)
+    print(f"ik: {IK_HOLD_STEPS} iterations over {n_fr} frames ({len(sites)} "
+          f"sites, {len(adr)} joints) card vs cpu: qpos change rel_norm "
+          f"{rel:.3e} (cpu f32 vs f64 {rel32:.3e}; tol {ik_bound:.3g}), "
+          f"site error {err_rel:.3e} (tol {err_bound:.3g})", flush=True)
+    if not rel <= ik_bound or not err_rel <= err_bound:
+        fail("ik: the card's iterates differ from the CPU's")
+    e0 = float(ik(mrat, 0).site_error)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ik(mrat, IK_STEPS)
+    torch.cuda.synchronize()
+    ik_ms = 1e3 * (time.perf_counter() - t0) / IK_STEPS
+    e20, e200 = float(moved["card"][1]), float(res.site_error)
+    print(f"ik: site error {e0:.4e} at the start, {e20:.4e} after "
+          f"{IK_HOLD_STEPS} iterations, {e200:.4e} after {IK_STEPS}; "
+          f"{ik_ms:.2f} ms per iteration at {n_fr} frames | {smi}",
+          flush=True)
+    expect("ik", 0)
+    if not e200 < e20 < e0:
+        fail("ik: the site error did not fall")
+    del res, moved, target, q_start, q_clip
+    track_s["ik"] = time.perf_counter() - t
+
+    # (f) DMPOTrainer with configs/train_config_rodent_imitation.yaml's
+    # intention networks at its 168 envs, one iteration of unroll 5
+    # training once that rollout is in replay; its checkpoint then the
+    # frozen decoder of configs/train_config_gaps_transfer.yaml's trainer
+    # (--transfer-ckpt), one iteration
+    t = time.perf_counter()
+
+    def track_cfg(argv):
+        args_x = train_dmpo.parse_args(argv)
+        return args_x, dataclasses.replace(
+            train_dmpo.trainer_config(args_x), unroll_length=TRACK_UNROLL,
+            min_replay_size=args_x.num_envs * TRACK_UNROLL,
+            replay_capacity=TRACK_REPLAY)
+
+    args_i, cfg_i = track_cfg(["--config", os.path.join(
+        ROOT, "configs", "train_config_rodent_imitation.yaml")])
+    launched_ti, tr_i, loop_i = train_phase(
+        env_rat, cfg_i, 1, zero_counts, counts, smi, label="tracking_train",
+        min_copies=0)[:3]
+    hold_final("tracking_train", mrat, loop_i.env_states.data, 96)
+    update_check(tr_i.learner, cfg_i.dmpo, tag="tracking update")
+    rows["solve_rows"]["launches_tracking_train"] = \
+        launched_ti["solve_rows"]
+    donor_dir = tempfile.mkdtemp(prefix="chip_smoke_tracking_donor_")
+    donor_path = ckpt.save(donor_dir, {"train": loop_i.train})
+    del tr_i, loop_i
+    args_g, cfg_g = track_cfg(["--config", os.path.join(
+        ROOT, "configs", "train_config_gaps_transfer.yaml"),
+        "--transfer-ckpt", donor_path])
+    tr_g = train_dmpo.build_trainer(args_g, cfg_g)
+    loop_g = tr_g.init(args_g.seed)
+    donor = ckpt.restore_policy_params(args_g.transfer_ckpt)
+    shutil.rmtree(donor_dir)
+    tr_g.restore_decoder(loop_g.train, donor)
+    dec_keys = [k for k in donor if k.startswith("decoder.")]
+
+    def decoder_is_donor(when):
+        for net in ("policy", "target_policy"):
+            sd = getattr(loop_g.train, net).state_dict()
+            same = all(torch.equal(sd[k].cpu(), donor[k]) for k in dec_keys)
+            print(f"tracking transfer: {net} decoder ({len(dec_keys)} "
+                  f"tensors) bit-identical to the donor's {when}: {same}",
+                  flush=True)
+            if not same:
+                fail(f"tracking transfer: the {net} decoder differs from "
+                     f"the donor's {when}")
+
+    decoder_is_donor("before training")
+    enc0 = param_vector(loop_g.train.policy.encoder)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    loop_g, metrics_g = tr_g.train_iteration(loop_g)
+    torch.cuda.synchronize()
+    iter_g = time.perf_counter() - t0
+    rows["solve_rows"]["launches_tracking_transfer"] = expect(
+        "tracking transfer", TRACK_UNROLL * tr_g.env.n_substeps)
+    decoder_is_donor("after one iteration")
+    moved_g = rel_norm(param_vector(loop_g.train.policy.encoder), enc0)
+    width = loop_g.train.policy.decoder.mlp.linears[0].in_features
+    print(f"tracking transfer: {type(tr_g.env.task).__name__} at "
+          f"{cfg_g.num_envs} envs, decoder in {width} floats; learner_steps "
+          f"{loop_g.train.steps} (expected {tr_g.updates_per_iter}); the "
+          f"encoder moved by {moved_g:.3e}; the iteration {iter_g:.1f} s | "
+          f"{smi}", flush=True)
+    if loop_g.train.steps != tr_g.updates_per_iter or not moved_g > 0:
+        fail("tracking transfer: the encoder did not train")
+    del tr_g, loop_g, metrics_g, donor
+    track_s["train"] = time.perf_counter() - t
+
+    # (g) clip playback through its entry point into the temp directory,
+    # and the rasterizer's host ms per frame of that playback
+    t = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_stac_")
+    zero_counts()
+    if render_stac.main(["--num-clips", "1", "--n-steps", str(STAC_FRAMES),
+                         "--out-dir", out_dir]) != 0:
+        fail("render_stac: exit code")
+    written = sorted(os.listdir(out_dir))
+    if written == ["clip_0.mp4.npz"]:
+        frames = np.load(os.path.join(out_dir, written[0]))["frames"]
+        shown = (frames.shape == (STAC_FRAMES, 240, 320, 3)
+                 and frames.dtype == np.uint8 and frames.std() > 1.0)
+    else:
+        shown = written == ["clip_0.mp4"]
+    t0 = time.perf_counter()
+    render_stac.playback_frames(env_rat, clips.fields["qpos"][0],
+                                STAC_FRAMES, 320, 240)
+    ms_stac = 1e3 * (time.perf_counter() - t0) / STAC_FRAMES
+    expect("render_stac", 0)
+    print(f"render_stac: wrote {written} ({STAC_FRAMES} frames, shown "
+          f"{shown}); playback {ms_stac:.1f} host ms per 320x240 frame "
+          f"(the kinematics and the copy to the host included) | {smi}",
+          flush=True)
+    shutil.rmtree(out_dir)
+    if not shown:
+        fail("render_stac: the playback frames")
+    track_s["render_stac"] = time.perf_counter() - t
+    del env_track, env_rat, cpu_rat, env_h
+    print(f"tracking: wall s "
+          f"{json.dumps({k: round(v, 1) for k, v in track_s.items()})}, "
+          f"phase {time.perf_counter() - t14:.1f} s | {smi}", flush=True)
+
+    # ---- 15. result ------------------------------------------------------
     shapes = {"": (m.nv, R, m.tree), "_imitation": (mi.nv, R_i, mi.tree),
               "_flight": (mf.nv, R_f, mf.tree)}
     occupancy = [(name, at, SK.kernel_info(name, nv_, R_, tr.nM,
@@ -1961,6 +2304,8 @@ def main() -> int:
         "solve_rows", mv.nv, R_v, mv.tree.nM, SK.pack_tables(mv.tree))),
                   ("solve_rows", "_rodent", SK.kernel_info(
         "solve_rows", mr.nv, 96, mr.tree.nM, SK.pack_tables(mr.tree))),
+                  ("solve_rows", "_humanoid", SK.kernel_info(
+        "solve_rows", mh.nv, 96, mh.tree.nM, SK.pack_tables(mh.tree))),
                   ("upsolve_yd", "", SK.kernel_info(
         "upsolve_yd", m.nv, R, m.tree.nM, SK.pack_tables(m.tree))),
                   ("admm_iterate", "", AK.kernel_info(n_rows))]

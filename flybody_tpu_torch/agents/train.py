@@ -157,18 +157,30 @@ class TrainerBase:
         """Transfer mode: copy the decoder entries of the donor policy's
         state_dict into ``train``'s online and target policy, in place
         (reference learning_dmpo.py:236-243); with cfg.freeze_decoder they
-        then stay as restored. Raises when the donor has no decoder entry
-        that the policy has."""
+        then stay as restored. Raises, touching nothing, when the donor has
+        no decoder entry that the policy has, or one of another shape (a
+        decoder reads the intention and the egocentric observations, so a
+        donor from a task with other egocentric observations does not
+        fit; the JAX package fails at its first forward pass then)."""
         dec = decoder_param_filter(donor)[0]
-        for net in (train.policy, train.target_policy):
-            own = net.state_dict()
+        nets = [net.state_dict() for net in (train.policy,
+                                             train.target_policy)]
+        for own in nets:
             hits = [k for k in dec if k in own]
             if not hits:
                 raise ValueError("the donor has no decoder parameter of "
                                  "this policy")
-            with torch.no_grad():
-                for k in hits:
-                    own[k].copy_(dec[k])
+            bad = [f"{k} {tuple(dec[k].shape)} (this policy's "
+                   f"{tuple(own[k].shape)})" for k in hits
+                   if dec[k].shape != own[k].shape]
+            if bad:
+                raise ValueError(f"the donor's decoder does not fit this "
+                                 f"policy: {', '.join(bad)}")
+        with torch.no_grad():
+            for own in nets:
+                for k in dec:
+                    if k in own:
+                        own[k].copy_(dec[k])
         return train
 
     def stat_keys(self, train: TrainState) -> list:

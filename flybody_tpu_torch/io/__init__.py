@@ -1,1 +1,1 @@
-"""Checkpoints."""
+"""Checkpoints, reference-trajectory datasets and STAC clip conversion."""

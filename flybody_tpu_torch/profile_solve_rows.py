@@ -6,7 +6,8 @@
 Builds the solve_rows inputs of TASK (a ``train_dmpo --task``:
 walk_on_ball by default, R 152 rows, the narrow instance;
 walk_imitation, R 176, the wide one; flight_imitation, R 64 over 42 dofs,
-and rodent_two_touch, R 96 over 73, the narrow one)
+rodent_two_touch and rodent_walk_imitation, R 96 over 73, and
+walk_humanoid, R 96 over 62, the narrow one)
 on the card: B=4096, float32, a reset from a seeded CUDA generator and two
 control steps at mid-range actions. Then, for each
 package directory
@@ -177,7 +178,8 @@ def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="walk_on_ball",
                     choices=("walk_on_ball", "walk_imitation",
-                             "flight_imitation", "rodent_two_touch"))
+                             "flight_imitation", "rodent_two_touch",
+                             "rodent_walk_imitation", "walk_humanoid"))
     ap.add_argument("--stages", action="store_true",
                     help="the full source only, with the stage kernels")
     ap.add_argument("packages", nargs="*", default=[PKG])

@@ -2,9 +2,10 @@
 
     python3 -m flybody_tpu_torch.profile_step [B] [TASK]
 
-TASK is a ported ``train_dmpo --task`` (walk_on_ball by default,
+TASK is a ``train_dmpo --task`` (walk_on_ball by default,
 walk_imitation, flight_imitation, vision_guided_flight, rodent_two_touch,
-rodent_escape_bowl, rodent_run_gaps, rodent_maze_forage). Prints (1) the
+rodent_escape_bowl, rodent_run_gaps, rodent_maze_forage,
+rodent_walk_imitation, walk_humanoid). Prints (1) the
 host-clock time of each physics stage of one fresh and one update substep,
 each stage fenced by torch.cuda.synchronize, and of one batched
 ``env.reset`` (the auto-reset of a task that draws its initial states runs

@@ -7,15 +7,15 @@ one device. Usage:
 
 It runs on "cuda" and raises without it unless ``--device cpu`` is given.
 ``--test`` runs a small smoke configuration printing stats. The flags are
-those of the JAX package's train_dmpo.py. The tasks walk_on_ball, template,
-walk_imitation, flight_imitation, vision_guided_flight, rodent_two_touch,
-rodent_escape_bowl, rodent_run_gaps and rodent_maze_forage are ported,
-with the plain, intention (``--network intention`` and its five flags)
-and vision (``--network vision``) networks, multi-task training
-(``--task-envs task:n,task:n`` or a YAML ``task_envs``), decoder transfer
+those of the JAX package's train_dmpo.py. Every task of the JAX CLI is
+ported (the two tracking tasks, rodent_walk_imitation and walk_humanoid,
+on their synthetic clips, as the JAX CLI builds them), with the plain,
+intention (``--network intention`` and its five flags) and vision
+(``--network vision``) networks, multi-task training (``--task-envs
+task:n,task:n`` or a YAML ``task_envs``), decoder transfer
 (``--transfer-ckpt``: restore a donor's decoder and freeze it) and
-kickstarting (``--kickstart-ckpt``); rodent_walk_imitation and
-walk_humanoid raise NotImplementedError (ROADMAP A7c).
+kickstarting (``--kickstart-ckpt``). The rodent's egocentric camera is not
+ported yet (ROADMAP A7d).
 """
 
 from __future__ import annotations
@@ -29,14 +29,12 @@ TASKS = ("walk_on_ball", "template", "walk_imitation", "flight_imitation",
          "rodent_maze_forage", "rodent_two_touch", "rodent_walk_imitation",
          "walk_humanoid")
 
-# the ported tasks, by CLI name -> factory of fly_envs (rodent_envs for
-# the rodent tasks)
-PORTED = {"walk_on_ball": "walk_on_ball", "template": "template_task",
-          "walk_imitation": "walk_imitation",
-          "flight_imitation": "flight_imitation",
-          "vision_guided_flight": "vision_guided_flight",
-          **{t: t for t in ("rodent_escape_bowl", "rodent_run_gaps",
-                            "rodent_maze_forage", "rodent_two_touch")}}
+# the tasks by CLI name -> factory of fly_envs (of rodent_envs for the
+# rodent and humanoid tasks)
+FLY_TASKS = {"walk_on_ball": "walk_on_ball", "template": "template_task",
+             "walk_imitation": "walk_imitation",
+             "flight_imitation": "flight_imitation",
+             "vision_guided_flight": "vision_guided_flight"}
 
 # flags read only by the intention network, with their defaults: another
 # value with another network raises rather than being dropped
@@ -47,12 +45,11 @@ INTENTION_FLAGS = {"encoder_layers": "512,512",
 
 def make_env(name: str, device):
     from flybody_tpu_torch import fly_envs, rodent_envs
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"task {name!r} is not ported yet (ROADMAP A7c: tracking and "
-            "the humanoid)")
-    module = rodent_envs if name.startswith("rodent_") else fly_envs
-    return getattr(module, PORTED[name])(device=device)
+    if name not in TASKS:
+        raise ValueError(f"unknown task {name!r}")
+    if name in FLY_TASKS:
+        return getattr(fly_envs, FLY_TASKS[name])(device=device)
+    return getattr(rodent_envs, name)(device=device)
 
 
 def parse_args(argv=None):
@@ -166,21 +163,11 @@ def build_trainer(args, cfg):
     return DMPOTrainer(make_env(args.task, args.device), cfg)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.network != "intention":
-        for k, default in INTENTION_FLAGS.items():
-            v = getattr(args, k)
-            if (layers(v) != layers(default) if k.endswith("_layers")
-                    else v != default):
-                raise ValueError(f"--{k.replace('_', '-')} is read only by "
-                                 "--network intention")
+def trainer_config(args):
+    """The TrainerConfig of the parsed arguments ``args``."""
     from flybody_tpu_torch.agents.dmpo import DMPOConfig
     from flybody_tpu_torch.agents.train import TrainerConfig
-    from flybody_tpu_torch.io import checkpoint as ckpt
-    from flybody_tpu_torch.utils.loggers import make_default_logger
-
-    cfg = TrainerConfig(
+    return TrainerConfig(
         num_envs=args.num_envs, unroll_length=args.unroll_length,
         replay_capacity=args.replay_capacity,
         min_replay_size=args.min_replay_size,
@@ -206,6 +193,21 @@ def main(argv=None):
                         target_critic_update_period=(
                             args.target_critic_update_period),
                         intention_kl_weight=args.intention_kl_weight))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.network != "intention":
+        for k, default in INTENTION_FLAGS.items():
+            v = getattr(args, k)
+            if (layers(v) != layers(default) if k.endswith("_layers")
+                    else v != default):
+                raise ValueError(f"--{k.replace('_', '-')} is read only by "
+                                 "--network intention")
+    from flybody_tpu_torch.io import checkpoint as ckpt
+    from flybody_tpu_torch.utils.loggers import make_default_logger
+
+    cfg = trainer_config(args)
     trainer = build_trainer(args, cfg)
     tasks = ",".join(getattr(trainer, "names", (args.task,)))
     print(f"task {tasks}: {trainer.obs_size} observation floats, "

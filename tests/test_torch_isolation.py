@@ -58,7 +58,13 @@ def test_import_leaves_jax_unloaded():
             "flybody_tpu_torch.rodent_envs, flybody_tpu_torch.models.rodent, "
             "flybody_tpu_torch.envs.rodent_walker, "
             "flybody_tpu_torch.tasks.rodent_tasks, "
-            "flybody_tpu_torch.tasks.rodent_arenas; "
+            "flybody_tpu_torch.tasks.rodent_arenas, "
+            "flybody_tpu_torch.tasks.tracking, "
+            "flybody_tpu_torch.tasks.tracking_rewards, "
+            "flybody_tpu_torch.envs.humanoid_walker, "
+            "flybody_tpu_torch.io.stac, "
+            "flybody_tpu_torch.inverse_kinematics, "
+            "flybody_tpu_torch.render_stac; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -103,7 +109,9 @@ def test_flight_and_template_need_cuda_unless_told_otherwise(factory):
 
 
 @pytest.mark.parametrize("factory", ["rodent_two_touch", "rodent_escape_bowl",
-                                     "rodent_run_gaps", "rodent_maze_forage"])
+                                     "rodent_run_gaps", "rodent_maze_forage",
+                                     "rodent_walk_imitation",
+                                     "walk_humanoid"])
 def test_rodent_envs_need_cuda_unless_told_otherwise(factory):
     from flybody_tpu_torch import rodent_envs
     if torch.cuda.is_available():
@@ -112,4 +120,8 @@ def test_rodent_envs_need_cuda_unless_told_otherwise(factory):
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
     env = make(device="cpu")
-    assert env.device.type == "cpu" and env.model.nv == 73
+    nv = 62 if factory == "walk_humanoid" else 73
+    assert env.device.type == "cpu" and env.model.nv == nv
+    if factory in ("rodent_walk_imitation", "walk_humanoid"):
+        assert env.task.clips.lengths.device.type == "cpu"
+        assert env.task.clips.fields["qpos"].device.type == "cpu"

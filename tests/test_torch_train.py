@@ -267,8 +267,10 @@ def test_trainer_needs_cuda_unless_told_otherwise():
         torch.device("cpu")
     assert train_dmpo.make_env("rodent_escape_bowl", "cpu").device == \
         torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        train_dmpo.make_env("rodent_walk_imitation", "cpu")
+    assert train_dmpo.make_env("walk_humanoid", "cpu").device == \
+        torch.device("cpu")
+    with pytest.raises(ValueError, match="unknown task"):
+        train_dmpo.make_env("walk_on_the_moon", "cpu")
 
 
 class _TaskToyEnv(_ToyEnv):
