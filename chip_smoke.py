@@ -8,7 +8,7 @@ Phases (each prints its lines; any failure exits non-zero):
   2. build    every CUDA source of flybody_tpu_torch/csrc with nvcc, one
               process per source, all started together
   3. main     walk_on_ball at B=4096, float32: reset, one warm-up control
-              step, then 20 autoreset_step calls with mid-range actions;
+              step, then 10 autoreset_step calls with mid-range actions;
               obs and reward must be finite and the solve_rows kernel
               must have launched exactly 10 times per control step
   4. check    one substep of 4 envs of the main path's final state on the
@@ -45,10 +45,10 @@ Phases (each prints its lines; any failure exits non-zero):
               step, and that kernel against its plain version env by env,
               after 1 and after 20 iterations; its time at 0 iterations
   8. train    DMPOTrainer on walk_on_ball (float32, the shipped network
-              widths, 256 envs, unroll 20, batch 256, 20 action samples,
-              32 samples per insert = 640 updates per iteration, a replay
-              ring of 1,000,000) for 2 iterations: exactly 400 solve_rows
-              launches, 1280 learner updates, 10240 transitions in replay,
+              widths, 256 envs, unroll 10, batch 256, 20 action samples,
+              32 samples per insert = 320 updates per iteration, a replay
+              ring of 1,000,000) for 2 iterations: exactly 200 solve_rows
+              launches, 640 learner updates, 5120 transitions in replay,
               finite stats, moved parameters and both target copies;
               solve_rows against its plain version on the inputs of the
               rollout's final state (B=256) as in phase 5; then three
@@ -111,7 +111,7 @@ Phases (each prints its lines; any failure exits non-zero):
               (its ref_* task keys; configs/train_config_rodent_imitation
               .yaml: encoder and decoder [1024, 1024], intention 60,
               critic [1024]x3, batch 256, latent KL weight 1e-4), 256
-              envs, unroll 10, 2 iterations of 320 updates: 200 launches at
+              envs, unroll 10, 1 iteration of 320 updates: 100 launches at
               R 176, intention_kl finite, three learner updates card vs CPU
               as in phase 8 (the encoder's and decoder's gradients too);
               (b) transfer: (a)'s policy checkpointed, a trainer with
@@ -122,8 +122,8 @@ Phases (each prints its lines; any failure exits non-zero):
               after, the encoder moved; (c) MultiTaskDMPOTrainer over
               walk_on_ball and walk_imitation (configs/train_config_two_
               tasks.yaml's [512]x3 networks, batch 512), 128 envs per task,
-              unroll 10, 2 iterations: 400 launches, 200 at R 152 and 200
-              at R 176, learner_steps = 2 tables x updates_per_table x 2,
+              unroll 10, 1 iteration: 200 launches, 100 at R 152 and 100
+              at R 176, learner_steps = 2 tables x updates_per_table,
               both tables filled, per-task metrics finite, the iteration
               split; (d) make_evaluator on walk_imitation with episodes of
               10 control steps, 8 episodes, (a)'s policy: 100 launches,
@@ -200,7 +200,41 @@ Phases (each prints its lines; any failure exits non-zero):
               --num-clips 1 --n-steps 5 into the temp directory (its
               frames uint8 and showing the rat), the playback's host ms
               per frame, no kernel launched
- 15. registers, shared memory, resident blocks and warps per SM, local
+ 15. vision   the rat's egocentric camera (solve_rows at 96 rows): (a)
+              rodent_escape_bowl(use_vision=True) at B=4096, float32, as
+              phase 13 (2 timed control steps: exactly 20 solve_rows
+              launches per control step and no other kernel), every
+              camera (B, 32, 32) in [0, 255], the share of pixels that
+              see the terrain first (> 0), the render's ms (CUDA events),
+              device ms and launches (torch.profiler) per call and its
+              peak memory; (b) one substep of 4 envs card vs CPU as in
+              phase 4, and the camera of CAM_ENVS envs of the final state
+              card vs CPU by hit distance (at most CAM_SHARE of the
+              pixels flip between hit and miss, at most CAM_SHARE move
+              over CAM_TOL_DIST); (c) solve_rows held on the final state;
+              (d) DMPOTrainer(network="vision") with
+              configs/train_config_bowl.yaml's networks ([512] x 3 each,
+              batch 2048) at its 280 envs, one iteration of unroll 5
+              training once that rollout is in replay (a ring of 10,000):
+              exactly 100 launches, VisNetRodent in both networks,
+              solve_rows held on its final state, three learner updates
+              card vs CPU as in phase 8 (batch 256, obs from (a))
+ 16. ranks    data-parallel training (flybody_tpu_torch/parallel): (a)
+              python -m torch.distributed.run --standalone
+              --nproc_per_node 1 -m flybody_tpu_torch.parallel.dryrun
+              --device cuda --backend nccl, a group of one over NCCL
+              (exit 0, one row, 70 solve_rows launches, 3 updates); (b)
+              two gloo ranks spawned on the one card (NCCL puts no two
+              ranks on one device): the dry run's iteration on each
+              (exactly 10 solve_rows launches per control step x unroll
+              7, the same parameters on both ranks, finite metrics, each
+              rank's s/iter printed: two ranks share one card, so no
+              scaling figure), then one learner update on the halves of
+              a fixed batch of 256 and of its action normals, in float32
+              and float64, the parameters the same on both ranks and held
+              against the same update on the whole batch in one process
+              as phase 8 holds the card against the CPU
+ 17. registers, shared memory, resident blocks and warps per SM, local
      (spill) bytes and apgd_iterate's active clusters of every kernel
      (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes,
      solve_rows at the vision, rodent and humanoid shapes), also as each
@@ -218,7 +252,10 @@ Phases (each prints its lines; any failure exits non-zero):
      "max_abs_err_rodent_random" and "_rodent_train"; "*_rodent_imitation"
      and "*_humanoid" keys in phase 14 with "launches_tracking_train" and
      "_tracking_transfer", "max_abs_err_humanoid_random" and
-     "_tracking_train"; beside them, each
+     "_tracking_train"; "launches_rodent_vision", "_vision_train" with
+     "max_abs_err_rodent_vision", "_vision_train" in phase 15 and
+     "launches_ranks" (the two gloo ranks together) in phase 16; beside
+     them, each
      hold's "replayed*" envs, flips, share and cap; upsolve_yd's
      "*_imitation" and "*_flight" keys in phases 9-10, with its library
      yardstick's "library_ms_*"; upsolve_build_yd's and apgd_iterate's
@@ -239,7 +276,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 4096
-STEPS = 20
+STEPS = 10
 ADMM_STEPS = 2
 IMIT_STEPS = 10
 FLIGHT_STEPS = 10
@@ -247,9 +284,10 @@ VISION_STEPS = 10
 # learner updates with the vision networks: the batch of phase 8
 VISION_BATCH = 256
 TEMPLATE_B = 8
-# phase 12: envs and control steps of the agent modes' runs (12a and 12b
-# 256 envs, 12c 128 per task, 12d 8 episodes, 12e one env), each run
-# training once its first rollout is in replay
+# phase 12: envs, control steps and iterations of the agent modes' runs
+# (12a and 12b 256 envs, 12c 128 per task, 12d 8 episodes, 12e one env),
+# each run training once its first rollout is in replay
+AGENT_ITERATIONS = 1
 AGENT_ENVS = 256
 AGENT_UNROLL = 10
 AGENT_MIN_REPLAY = 2560
@@ -278,6 +316,16 @@ IK_STEPS = 200
 TRACK_UNROLL = 5
 TRACK_REPLAY = 100_000
 STAC_FRAMES = 5
+# phase 15: the camera rat's control steps at B (a), the envs of the
+# camera's card-vs-CPU check (b), and the vision trainer's envs
+# (configs/train_config_bowl.yaml's 280) and replay ring (d: 1186 obs
+# floats a transition twice over, 95 MB)
+RODENT_VISION_STEPS = 2
+CAM_ENVS = 64
+BOWL_ENVS = 280
+RODENT_VISION_REPLAY = 10_000
+# phase 16: the longest a group of ranks may take, the spawn included
+RANKS_TIMEOUT = 300.0
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth
@@ -404,6 +452,17 @@ TIE_GAIN = 0.1
 TIE_SHARE = 1e-2
 TIE_MIN_ENVS = 6
 
+# The rat's camera card (float32) against the CPU (float32) on the same
+# final state, each pixel's nearest hit distance. Both march the same 48
+# samples and take the same closed forms; the camera pose and the geom
+# frames differ by float32 rounding (~1e-7 m), so a hit moves by ~1e-6 m.
+# A pixel flips between hit and miss, or moves by a march sample (0.084
+# m), only where a sample lies within rounding of the terrain or a ray
+# grazes a primitive: a handful of the 65,536 pixels. A wrong pose, scene
+# or terrain moves most hits by O(1). So: at most CAM_SHARE of the pixels
+# may flip, and at most CAM_SHARE may move by more than CAM_TOL_DIST.
+CAM_TOL_DIST = 1e-3
+CAM_SHARE = 1e-3
 ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
             "dinv", "qacc_smooth", "qvel", "kcoef", "bcoef", "posr")
 UP_ARGS = ROW_ARGS[7:]
@@ -793,12 +852,21 @@ def main() -> int:
     def with_solver(model, solver):
         return model.replace(opt=model.opt.replace(contact_solver=solver))
 
+    # each phase's wall seconds, printed at the end
+    phase_s, phase_t = {}, [time.perf_counter()]
+
+    def mark(phase: int) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = round(now - phase_t[0], 1)
+        phase_t[0] = now
+
     # ---- 1. device -------------------------------------------------------
     smi = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
+    mark(1)
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
@@ -809,6 +877,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    mark(2)
     # ---- 3. main path ----------------------------------------------------
     env = walk_on_ball()
     lo, hi = env.action_spec()
@@ -847,6 +916,7 @@ def main() -> int:
           f"finite; reward mean {state.reward.mean().item():.4f}, done "
           f"{int(state.done.sum())}", flush=True)
 
+    mark(3)
     # ---- 4. small-input reference: the same substep on the CPU ----------
     def first_four(data):
         """The numpy state of the first 4 envs of ``data``."""
@@ -885,6 +955,7 @@ def main() -> int:
 
     fused_out = substep_check("check", m, "fused")
 
+    mark(4)
     # ---- 5. solve_rows against its plain version -------------------------
     d = F.smooth_forward(m, state.data)
     prob = SF.assemble(m, d)
@@ -985,6 +1056,7 @@ def main() -> int:
                                    kwa["power_iters"]),
                 nbytes(*args.values(), *got))
 
+    mark(5)
     # ---- 6. the stage split on the fly inputs ----------------------------
     def hold_stages(label, tree, args, kwa, b1_f):
         """upsolve_build_yd on ``args`` and apgd_iterate on its Yd against
@@ -1134,6 +1206,7 @@ def main() -> int:
     rows["apgd_iterate"]["loop_off_ms"] = ms2_0
     del jt, got3, got4, want4, want4_64, lib_u, lib_j
 
+    mark(6)
     # ---- 7. the other contact solvers ------------------------------------
     cpu64 = with_solver(cpu[f64], "apgd")
     d64 = F.smooth_forward(cpu64, bridge.data_from_numpy(small, cpu64))
@@ -1217,11 +1290,12 @@ def main() -> int:
           f"with 0 iterations (W staged, z0 projected) {k0_ms:.3f} ms",
           flush=True)
 
+    mark(7)
     # ---- 8. training -----------------------------------------------------
     from flybody_tpu_torch.agents.dmpo import DMPOConfig
     from flybody_tpu_torch.agents.train import TrainerConfig
-    tcfg = TrainerConfig(num_envs=256, unroll_length=20,
-                         replay_capacity=1_000_000, min_replay_size=5120,
+    tcfg = TrainerConfig(num_envs=256, unroll_length=10,
+                         replay_capacity=1_000_000, min_replay_size=2560,
                          samples_per_insert=32.0,
                          dmpo=DMPOConfig(batch_size=256, n_step=5,
                                          num_samples=20))
@@ -1378,6 +1452,7 @@ def main() -> int:
             f"plain_ms_{label}": pms, f"bound_ms_{label}": b_ms,
             f"bound_by_{label}": by, f"library_ms_{label}": lib_ms})
 
+    mark(8)
     # ---- 9. walk_imitation -----------------------------------------------
     env_i = walk_imitation()
     mi = env_i.model
@@ -1423,6 +1498,7 @@ def main() -> int:
                hold_stages("imitation", mi.tree, args_i, kw_i, b1_fi)[2])
     del args_i
 
+    mark(9)
     # ---- 10. flight_imitation --------------------------------------------
     env_f = flight_imitation()
     mf = env_f.model
@@ -1470,6 +1546,7 @@ def main() -> int:
           f"all finite; reward {state_t.reward.mean().item():.1f}",
           flush=True)
 
+    mark(10)
     # ---- 11. vision_guided_flight ----------------------------------------
     from flybody_tpu_torch.agents.dmpo import DMPOConfig, DMPOLearner
     from flybody_tpu_torch.agents.networks import (VisionCritic,
@@ -1577,6 +1654,7 @@ def main() -> int:
     update_check(learner_v, vcfg, obs_pool=pool, tag="vision update")
     del pool, learner_v
 
+    mark(11)
     # ---- 12. agents ------------------------------------------------------
     import shutil
     import tempfile
@@ -1641,13 +1719,13 @@ def main() -> int:
         dmpo=DMPOConfig(batch_size=256, n_step=5, num_samples=20,
                         intention_kl_weight=1e-4))
     launched_a, tr_a, loop_a, metrics_a, (roll_a, upd_a) = train_phase(
-        env_i, acfg, TRAIN_ITERATIONS, zero_counts, counts, smi,
+        env_i, acfg, AGENT_ITERATIONS, zero_counts, counts, smi,
         label="intention")
-    n_a = TRAIN_ITERATIONS * AGENT_ENVS * AGENT_UNROLL
+    n_a = AGENT_ITERATIONS * AGENT_ENVS * AGENT_UNROLL
     kl = metrics_a.get("intention_kl")
     if kl is None or not bool(torch.isfinite(kl)):
         fail("intention: intention_kl missing or not finite")
-    n_upd_a = TRAIN_ITERATIONS * tr_a.updates_per_iter
+    n_upd_a = AGENT_ITERATIONS * tr_a.updates_per_iter
     print(f"intention: task keys {list(tr_a.obs_keys[:2])}, task prefix "
           f"{tr_a.task_obs_size} of {tr_a.obs_size} obs floats, solve_rows "
           f"at R {R_wi}; intention_kl {float(kl):.4e}; rollout "
@@ -1738,12 +1816,12 @@ def main() -> int:
     torch.cuda.synchronize()
     zero_counts()
     iter_c = []
-    for _ in range(TRAIN_ITERATIONS):
+    for _ in range(AGENT_ITERATIONS):
         t = time.perf_counter()
         loop_c, metrics_c = tr_c.train_iteration(loop_c)
         torch.cuda.synchronize()
         iter_c.append(time.perf_counter() - t)
-    want_c = {k: TRAIN_ITERATIONS * AGENT_UNROLL * tr_c.envs[k].n_substeps
+    want_c = {k: AGENT_ITERATIONS * AGENT_UNROLL * tr_c.envs[k].n_substeps
               for k in tr_c.names}
     launched_c = expect("multitask", sum(want_c.values()))
     print(f"multitask: solve_rows launches by task {per_task} (expected "
@@ -1751,13 +1829,13 @@ def main() -> int:
           f"{R_wi}}}", flush=True)
     if per_task != want_c or (R_wob, R_wi) != (152, 176):
         fail("multitask: both B1 instances did not run their share")
-    want_steps = len(tr_c.names) * tr_c.updates_per_table * TRAIN_ITERATIONS
+    want_steps = len(tr_c.names) * tr_c.updates_per_table * AGENT_ITERATIONS
     sizes = {k: loop_c.replays[k].size for k in tr_c.names}
     print(f"multitask: learner_steps {loop_c.train.steps} (expected "
           f"{want_steps}), replay tables {sizes} of "
           f"{loop_c.replays[tr_c.names[0]].capacity}", flush=True)
     if loop_c.train.steps != want_steps or min(sizes.values()) != \
-            TRAIN_ITERATIONS * MULTI_ENVS * AGENT_UNROLL:
+            AGENT_ITERATIONS * MULTI_ENVS * AGENT_UNROLL:
         fail("multitask: wrong number of updates or transitions")
     bad = [k for k, v in metrics_c.items() if "/" in k and not bool(
         torch.isfinite(torch.as_tensor(v)).all())]
@@ -1872,6 +1950,7 @@ def main() -> int:
     walls = {k: round(v, 1) for k, v in agent_s.items()}
     print(f"agents: wall s {json.dumps(walls)} | {smi}", flush=True)
 
+    mark(12)
     # ---- 13. rodent ------------------------------------------------------
     from flybody_tpu_torch import rodent_envs
     from flybody_tpu_torch.physics import types as T
@@ -2018,6 +2097,7 @@ def main() -> int:
           f"{json.dumps({k: round(v, 1) for k, v in rodent_s.items()})} | "
           f"{smi}", flush=True)
 
+    mark(13)
     # ---- 14. tracking ----------------------------------------------------
     from flybody_tpu_torch import render_stac, train_dmpo
     from flybody_tpu_torch.inverse_kinematics import qpos_from_site_xpos
@@ -2292,7 +2372,270 @@ def main() -> int:
           f"{json.dumps({k: round(v, 1) for k, v in track_s.items()})}, "
           f"phase {time.perf_counter() - t14:.1f} s | {smi}", flush=True)
 
-    # ---- 15. result ------------------------------------------------------
+    mark(14)
+    # ---- 15. rodent vision -----------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+    from flybody_tpu_torch.profile_step import device_rows
+    from flybody_tpu_torch.tasks.rodent_tasks import CAMERA_MAX_DIST
+    t15 = time.perf_counter()
+    # (a) rodent_escape_bowl with the egocentric camera at B envs: the
+    # rat's 20 substeps, and a render for the step's obs and one for the
+    # auto-reset's fresh batch every control step
+    env_c = rodent_envs.rodent_escape_bowl(use_vision=True)
+    mc, task_c = env_c.model, env_c.task
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_c, launched_c, step_c = env_phase("rodent_vision", env_c,
+                                            RODENT_VISION_STEPS)
+    peak_c = torch.cuda.max_memory_allocated()
+    dc = state_c.data
+    cam = state_c.obs["egocentric_camera"]
+    print(f"rodent_vision: egocentric_camera {tuple(cam.shape)}, min "
+          f"{cam.min().item():.2f}, max {cam.max().item():.2f}", flush=True)
+    if tuple(cam.shape) != (B, 32, 32) or not bool(
+            ((cam >= 0) & (cam <= 255)).all()):
+        fail("rodent_vision: a camera pixel outside [0, 255] or a wrong "
+             "shape")
+    hits_c = task_c.render_camera(dc, distance=True)
+    cam_pos, cam_mat = task_c.camera_pose(dc)
+    t_ter = raycast.render_eye(cam_pos, cam_mat, task_c.cam_rays,
+                               task_c.height_fn, max_dist=CAMERA_MAX_DIST,
+                               distance=True)
+    hit_c = hits_c < CAMERA_MAX_DIST
+    ter_c = (hit_c & (t_ter <= hits_c)).float().mean().item()
+    seen_c = hit_c.float().mean().item()
+    print(f"rodent_vision: pixels that hit something {100 * seen_c:.2f} %, "
+          f"the terrain first {100 * ter_c:.2f} % (of {hit_c.numel()})",
+          flush=True)
+    if not ter_c > 0:
+        fail("rodent_vision: no camera pixel sees the bowl's terrain")
+    del hits_c, t_ter, hit_c, cam_pos, cam_mat
+    render_ms_c = cuda_ms(lambda: task_c.render_camera(dc), 5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        task_c.render_camera(dc)
+        torch.cuda.synchronize()
+    render_peak_c = torch.cuda.max_memory_allocated() - base
+    rrows = device_rows(prof)
+    dev_ms_c = sum(a.self_device_time_total for a in rrows) / 1e3
+    n_render = sum(a.count for a in rrows)
+    print(f"rodent_vision: camera render (B={B}, 32x32, chunks of "
+          f"{raycast.RENDER_CHUNK} envs) {render_ms_c:.2f} ms per call "
+          f"(CUDA events), device "
+          f"{f'{dev_ms_c:.2f} ms' if dev_ms_c else 'not measured'} in "
+          f"{n_render} kernels/copies (torch.profiler); 2 calls per "
+          f"control step = {2 * render_ms_c:.2f} ms of {1e3 * step_c:.1f} "
+          f"ms ({100 * 2e-3 * render_ms_c / step_c:.1f} %); device memory: "
+          f"a render's peak {render_peak_c / 1e9:.2f} GB over "
+          f"{base / 1e9:.2f} GB held, the phase's peak "
+          f"{peak_c / 1e9:.2f} GB | {smi}", flush=True)
+    del prof, rrows
+    # (b) one substep of 4 envs card vs CPU as in phase 4, and the camera
+    # of CAM_ENVS envs of the final state card vs CPU, hit distances
+    cpu_c = {dt_: rodent_envs.rodent_escape_bowl(device="cpu", dtype=dt_,
+                                                 use_vision=True)
+             for dt_ in (f32, f64)}
+    substep_check("rodent_vision", mc, "fused", small=first_four(dc),
+                  cpu={dt_: e.model for dt_, e in cpu_c.items()})
+    small_c = {k: ({kk: vv[..., :CAM_ENVS] for kk, vv in v.items()}
+                   if isinstance(v, dict) else v[..., :CAM_ENVS])
+               for k, v in bridge.to_numpy(dc).items()}
+    t_card = task_c.render_camera(bridge.data_from_numpy(small_c, mc),
+                                  distance=True).double().cpu()
+    for dt_, e in cpu_c.items():
+        t_cpu = e.task.render_camera(bridge.data_from_numpy(small_c,
+                                                            e.model),
+                                     distance=True).double()
+        hc, hp = t_card < CAMERA_MAX_DIST, t_cpu < CAMERA_MAX_DIST
+        both = hc & hp
+        gap = (t_card - t_cpu).abs()
+        flips = (hc != hp).float().mean().item()
+        moved = (both & (gap > CAM_TOL_DIST)).float().mean().item()
+        near = gap[both & (gap <= CAM_TOL_DIST)]
+        print(f"rodent_vision: camera card f32 vs cpu {str(dt_)[6:]} over "
+              f"{CAM_ENVS} envs: hit in {100 * hc.float().mean().item():.2f}"
+              f" % / {100 * hp.float().mean().item():.2f} % of pixels; "
+              f"hit/miss differs in {100 * flips:.4f} %, a hit moved over "
+              f"{CAM_TOL_DIST:g} in {100 * moved:.4f} % (bound "
+              f"{100 * CAM_SHARE:g} % each); the rest within "
+              f"{near.max().item() if near.numel() else 0.0:.3e}", flush=True)
+        if dt_ == f32 and not (flips <= CAM_SHARE and moved <= CAM_SHARE):
+            fail("rodent_vision: the card's camera differs from the CPU's")
+    del cpu_c, t_card, t_cpu
+    # (c) solve_rows on the final state (R 96 over 73 dofs)
+    hold_final("rodent_vision", mc, dc, 96)
+    rows["solve_rows"]["launches_rodent_vision"] = launched_c["solve_rows"]
+    keys_c, slices_c = obs_layout(state_c.obs)
+    pool_c = batch_concat(state_c.obs, keys=keys_c,
+                          num_batch_dims=1).double().cpu().numpy()
+    del state_c, dc, cam
+    # (d) DMPOTrainer with the vision networks at
+    # configs/train_config_bowl.yaml's widths, batch and envs
+    vcfg_c = TrainerConfig(
+        num_envs=BOWL_ENVS, unroll_length=TRACK_UNROLL,
+        replay_capacity=RODENT_VISION_REPLAY,
+        min_replay_size=BOWL_ENVS * TRACK_UNROLL, samples_per_insert=32.0,
+        network="vision", policy_layers=(512, 512, 512),
+        critic_layers=(512, 512, 512),
+        dmpo=DMPOConfig(batch_size=2048, n_step=5, num_samples=20))
+    launched_vt, tr_vt, loop_vt = train_phase(
+        env_c, vcfg_c, 1, zero_counts, counts, smi,
+        label="rodent_vision_train", min_copies=0)[:3]
+    if type(tr_vt.policy.vis).__name__ != "VisNetRodent":
+        fail("rodent_vision_train: the policy's front-end is not "
+             "VisNetRodent")
+    hold_final("vision_train", mc, loop_vt.env_states.data, 96)
+    rows["solve_rows"]["launches_vision_train"] = launched_vt["solve_rows"]
+    print(f"rodent_vision update: VisionPolicy and VisionCritic on "
+          f"{tr_vt.obs_size} obs floats (one camera of "
+          f"{slices_c['egocentric_camera'][2]}), batch {VISION_BATCH}",
+          flush=True)
+    update_check(tr_vt.learner, dataclasses.replace(
+        vcfg_c.dmpo, batch_size=VISION_BATCH), obs_pool=pool_c,
+        tag="rodent vision update")
+    del tr_vt, loop_vt, pool_c, env_c
+    print(f"rodent_vision: phase {time.perf_counter() - t15:.1f} s | {smi}",
+          flush=True)
+
+    mark(15)
+    # ---- 16. multi-GPU ---------------------------------------------------
+    from flybody_tpu_torch.agents.dmpo import Transition
+    from flybody_tpu_torch.agents.networks import make_policy_critic
+    from flybody_tpu_torch.parallel import dryrun
+    t16 = time.perf_counter()
+    want_dry = dryrun.UNROLL * env.n_substeps
+
+    def ranks_gloo():
+        """(b) two gloo ranks sharing the card: the dry run's iteration,
+        then one learner update on the halves of a fixed batch (and of
+        its action normals) in float32 and float64, held against the same
+        update on the whole batch in this process as update_check holds
+        the card against the CPU."""
+        obs_w, act_w = trainer_t.obs_size, env.action_size
+        scfg = DMPOConfig(batch_size=256, n_step=5, num_samples=20)
+        rng16 = np.random.RandomState(16)
+        batch_np = dict(obs=rng16.normal(size=(256, obs_w)),
+                        action=rng16.uniform(-1, 1, (256, act_w)),
+                        reward=rng16.uniform(0, 1, 256),
+                        discount=np.full(256, 0.99 ** 5),
+                        next_obs=rng16.normal(size=(256, obs_w)))
+        eps_np = rng16.normal(size=(20, 256, act_w))
+        jobs, ref = [("iteration_worker", ())], {}
+        nets = ("policy", "critic", "target_policy", "target_critic",
+                "dual_params")
+        for dt_ in (f32, f64):
+            pol, crit = make_policy_critic(
+                act_w, obs_w, generator=torch.Generator().manual_seed(0))
+            lrn = DMPOLearner(pol.to(dt_), crit.to(dt_), act_w, obs_w, scfg)
+            sd = lrn.init(torch.Generator().manual_seed(1)).state_dict()
+            tb = Transition(**{k: torch.as_tensor(v, dtype=dt_)
+                               for k, v in batch_np.items()})
+            te = torch.as_tensor(eps_np, dtype=dt_)
+            jobs.append(("split_update_worker", (lrn, sd, [tb], [te])))
+            # the whole batch in one process on the card
+            one = DMPOLearner(copy.deepcopy(pol).to(dev),
+                              copy.deepcopy(crit).to(dev), act_w, obs_w,
+                              scfg)
+            st1 = one.init(torch.Generator().manual_seed(1))
+            for k in nets:
+                getattr(st1, k).load_state_dict(sd[k])
+            first = param_vector(st1.policy, st1.critic, st1.dual_params)
+            stats1 = one.update(st1, Transition(**{
+                k: v.to(dev) for k, v in vars(tb).items()}), eps=te.to(dev))
+            after = param_vector(st1.policy, st1.critic, st1.dual_params)
+            ref[dt_] = {k: stats1[k].double().cpu()
+                        for k in ("critic_loss", "policy_loss_total")}
+            ref[dt_].update({"params": after, "params - init": after - first})
+        torch.cuda.synchronize()
+        ranks = dryrun.spawn("run_jobs", 2, (jobs,), device="cuda",
+                             backend="gloo", timeout=RANKS_TIMEOUT)
+        for r, (row, _, _) in enumerate(ranks):
+            print(f"ranks gloo: rank {r}: {row['procs']} ranks, "
+                  f"{row['envs']} envs, {row['s_per_iter']:.3f} s per "
+                  f"iteration (two ranks share one card: not a scaling "
+                  f"figure), solve_rows launches "
+                  f"{row['solve_rows_launches']} (expected {want_dry}), "
+                  f"learner_steps {row['learner_steps']}, params "
+                  f"{row['params']}", flush=True)
+            if row["solve_rows_launches"] != want_dry or \
+                    row["learner_steps"] != 3:
+                fail(f"ranks gloo: rank {r}'s dry run launches or updates")
+            if not all(math.isfinite(v) for v in row["metrics"].values()):
+                fail(f"ranks gloo: rank {r}'s metrics not finite")
+        for i, what in ((0, "the dry run's"), (1, "the f32 split update's"),
+                        (2, "the f64 split update's")):
+            h = [r[i]["params"] for r in ranks]
+            print(f"ranks gloo: {what} params on the two ranks {h}",
+                  flush=True)
+            if h[0] != h[1]:
+                fail(f"ranks gloo: {what} params differ between the ranks")
+        got = {}
+        for i, dt_ in ((1, f32), (2, f64)):
+            out = ranks[0][i]
+            after = torch.cat([v.double().reshape(-1) for k in (
+                "policy", "critic", "dual_params")
+                for v in out["nets"][k].values()])
+            got[dt_] = {k: out["stats"][0][k].double()
+                        for k in ("critic_loss", "policy_loss_total")}
+            got[dt_].update({"params": after, "params - init": after - (
+                ref[dt_]["params"] - ref[dt_]["params - init"])})
+        for name in ref[f32]:
+            dist = rel_norm if ref[f32][name].numel() > 1 else (
+                lambda a, b: abs(float(a) - float(b))
+                / max(abs(float(b)), 1e-30))
+            d32 = dist(got[f32][name], ref[f32][name])
+            d64 = dist(got[f64][name], ref[f64][name])
+            one_d = dist(ref[f32][name], ref[f64][name])
+            two_d = dist(got[f32][name], got[f64][name])
+            tol = TOL_DELTA if name == "params - init" else TOL_UPDATE
+            bound = max(tol, F64_FACTOR * one_d)
+            print(f"ranks split: {name:18s} two ranks vs one process f32 "
+                  f"{d32:.3e} (tol {bound:.3g}), f64 {d64:.3e} (tol "
+                  f"{TOL_F64:g}); f32 vs f64: one {one_d:.3e}, two "
+                  f"{two_d:.3e}", flush=True)
+            if not d64 <= TOL_F64:
+                fail(f"ranks split {name} in float64: {d64:.3e}")
+            if not two_d <= CARD_F32_RATIO * max(one_d, F32_FLOOR):
+                fail(f"ranks split {name}: the two ranks' f32 vs f64 "
+                     f"{two_d:.3e} > {CARD_F32_RATIO:g} x one process's")
+            if not d32 <= bound:
+                fail(f"ranks split {name}: {d32:.3e} > {bound:.3g}")
+        rows["solve_rows"]["launches_ranks"] = sum(
+            r[0]["solve_rows_launches"] for r in ranks)
+
+    # (a) the dry run as one rank of torchrun's group over NCCL: a group
+    # of one through the same code (NCCL puts no two ranks on one card);
+    # it runs while (b) does, and is read after it
+    env16 = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                 + os.environ.get("PYTHONPATH", ""))
+    nccl_proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "flybody_tpu_torch.parallel.dryrun",
+         "--device", "cuda", "--backend", "nccl"], cwd=ROOT, env=env16,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ranks_gloo()
+        out, err = nccl_proc.communicate(timeout=RANKS_TIMEOUT)
+    finally:
+        if nccl_proc.poll() is None:
+            nccl_proc.kill()
+            nccl_proc.wait()
+    nccl = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    print(f"ranks nccl: exit {nccl_proc.returncode}, rows {nccl}",
+          flush=True)
+    if nccl_proc.returncode != 0 or len(nccl) != 1 or (
+            nccl[0]["procs"] != 1
+            or nccl[0]["solve_rows_launches"] != want_dry
+            or nccl[0]["learner_steps"] != 3):
+        fail(f"ranks nccl: the dry run under torchrun: {err[-3000:]}")
+    print(f"ranks: phase {time.perf_counter() - t16:.1f} s | {smi}",
+          flush=True)
+
+    mark(16)
+    # ---- 17. result ------------------------------------------------------
     shapes = {"": (m.nv, R, m.tree), "_imitation": (mi.nv, R_i, mi.tree),
               "_flight": (mf.nv, R_f, mf.tree)}
     occupancy = [(name, at, SK.kernel_info(name, nv_, R_, tr.nM,
@@ -2334,6 +2677,8 @@ def main() -> int:
         rows["solve_rows"][f"replayed{key}"] = rep
     order = ("solve_rows", "apgd_iterate", "upsolve_build_yd", "upsolve_yd",
              "admm_iterate")
+    print(f"wall s per phase {json.dumps(phase_s)}, in all "
+          f"{sum(phase_s.values()):.1f} s", flush=True)
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,9 @@
 * three Adam optimizers (policy / critic / dual), the first two after a
   global-norm clip of 40 over their own gradients; periodic target-network
   copies (policy every 101 updates, critic every 107).
+* over data-parallel ranks (``parallel.distributed``) the gradients of
+  the three groups are mean-all-reduced before the clip, so every rank
+  takes the same step.
 * an intention policy (``with_intention``) adds KL(intention || N(0, 1))
   when ``intention_kl_weight`` > 0; a frozen decoder
   (``intention_networks.freeze_decoder``) gets no gradients.
@@ -28,6 +31,8 @@ import torch
 from flybody_tpu_torch.agents import losses_mpo
 from flybody_tpu_torch.agents.distributions import NormalDiag
 from flybody_tpu_torch.agents.losses_mpo import DualParams, MPOConfig
+from flybody_tpu_torch.parallel import distributed as D
+from flybody_tpu_torch.parallel.mesh import allreduce_grads_
 
 
 @dataclasses.dataclass
@@ -265,6 +270,13 @@ class DMPOLearner:
             opt.zero_grad(set_to_none=True)
         # the two losses share no parameter: one backward gives both
         (critic_loss + policy_loss).backward()
+        if D.in_group():
+            # data-parallel ranks: each loss is a mean over the batch of
+            # per-state terms, so the mean of the shards' gradients is the
+            # gradient of the whole batch
+            allreduce_grads_([*state.policy.parameters(),
+                              *state.critic.parameters(),
+                              *state.dual_params.parameters()])
         # a frozen decoder has no gradients, so it adds nothing to the norm
         # (as its zeroed gradients add nothing in the JAX package's chain)
         clip_by_global_norm_(state.policy.parameters(), cfg.clip_global_norm)

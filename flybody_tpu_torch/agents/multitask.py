@@ -12,6 +12,11 @@ All tasks share one action space (the reference trains one walker across
 its tasks); observation layouts may differ: each task's flat observation
 is zero-padded to the union size, the positional analog of the
 reference's SameObs normalization (rodent_tasks_modified.py:31-39).
+
+Over W data-parallel ranks (the JAX package's multitask_shardings) each
+rank steps its share of every task's envs into its share of every task's
+table, the learner's round-robin updates all-reduce their gradients
+(``agents/dmpo.py``), and the metrics are those of the global batch.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from flybody_tpu_torch.agents.networks import obs_layout
 from flybody_tpu_torch.agents.replay import ReplayBuffer
 from flybody_tpu_torch.agents.train import (TrainerBase, TrainerConfig,
                                             check_network)
+from flybody_tpu_torch.parallel import distributed as D
+from flybody_tpu_torch.parallel.mesh import reduce_metrics
 
 
 @dataclasses.dataclass
@@ -98,8 +105,17 @@ class MultiTaskDMPOTrainer(TrainerBase):
                                obs_pad=self.obs_size - self.obs_sizes[k],
                                action_delay=cfg.action_delay)
             for k in self.names}
-        # updates per table from samples_per_insert on the smallest insert;
-        # each update round takes one batch from every table
+        # this rank's share of the global sizes: its envs of each task,
+        # its part of each table and its gate, its batch
+        self.local_envs = {k: D.share(n, f"{k} envs")
+                           for k, n in self.num_envs.items()}
+        self.table_capacity = D.share(cfg.replay_capacity // len(self.names),
+                                      "replay_capacity per table")
+        self.table_gate = D.share(cfg.min_replay_size // len(self.names),
+                                  "min_replay_size per table")
+        self.batch_size = D.share(cfg.dmpo.batch_size, "batch_size")
+        # updates per table from samples_per_insert on the smallest global
+        # insert; each update round takes one batch from every table
         inserted = min(self.num_envs[k] for k in self.names) \
             * cfg.unroll_length
         self.updates_per_table = max(
@@ -108,16 +124,16 @@ class MultiTaskDMPOTrainer(TrainerBase):
     def init(self, seed: int = 0) -> MultiTaskLoopState:
         g = torch.Generator().manual_seed(seed)
         train = self.learner.init(g)
-        loop_gen = torch.Generator(self.device).manual_seed(
-            int(torch.randint(2 ** 62, (1,), generator=g)))
-        cap = self.cfg.replay_capacity // len(self.names)
+        loop_gen = self._rank_generators(
+            train, int(torch.randint(2 ** 62, (1,), generator=g)))
         env_states, replays, tails = {}, {}, {}
         for k in self.names:
-            env_states[k] = self.envs[k].reset(self.num_envs[k], loop_gen)
-            replays[k] = ReplayBuffer(cap, self._zero_transition(1),
+            env_states[k] = self.envs[k].reset(self.local_envs[k], loop_gen)
+            replays[k] = ReplayBuffer(self.table_capacity,
+                                      self._zero_transition(1),
                                       device=self.device)
             tails[k] = init_rollout_tail(
-                self.cfg.rollout, self.num_envs[k], self.obs_size,
+                self.cfg.rollout, self.local_envs[k], self.obs_size,
                 self.action_size, dtype=self.dtype, device=self.device)
         return MultiTaskLoopState(train=train, env_states=env_states,
                                   replays=replays, rollout_tails=tails,
@@ -137,17 +153,20 @@ class MultiTaskDMPOTrainer(TrainerBase):
                 loop.train.policy, loop.env_states[k],
                 loop.rollout_tails[k], loop.generator)
             loop.env_states[k], loop.rollout_tails[k] = es, tail
+            # equal inserts on every rank: the gate opens on all at once
+            assert transitions.reward.shape[0] == \
+                self.local_envs[k] * cfg.unroll_length
             loop.replays[k].insert(transitions)
-            metrics.update({f"{k}/{mk}": mv for mk, mv in am.items()})
+            metrics.update({f"{k}/{mk}": mv
+                            for mk, mv in reduce_metrics(am).items()})
 
-        gate = cfg.min_replay_size // len(self.names)
-        if all(loop.replays[k].size >= gate for k in self.names):
+        if all(loop.replays[k].size >= self.table_gate for k in self.names):
             rounds = []
             for _ in range(self.updates_per_table):
                 for k in self.names:
                     stats = self.learner.update(
                         loop.train, loop.replays[k].sample(
-                            loop.generator, cfg.dmpo.batch_size))
+                            loop.generator, self.batch_size))
                 rounds.append(stats)
             learn = {k: torch.stack([s[k] for s in rounds]).mean()
                      for k in rounds[0]}
@@ -156,7 +175,7 @@ class MultiTaskDMPOTrainer(TrainerBase):
                      for k in self.stat_keys(loop.train)}
 
         loop.actor_steps += sum(self.num_envs.values()) * cfg.unroll_length
-        metrics.update(learn)
+        metrics.update(reduce_metrics(learn))
         metrics["actor_steps"] = loop.actor_steps
         metrics["learner_steps"] = loop.train.steps
         per_task = lambda key: torch.stack(

@@ -7,9 +7,11 @@ vision variants.
   LayerNormMLP(512, 512, 256) -> Linear logits over 51 atoms in
   [-150, 150]
 * vision: the flat obs's two eye images go through VisNetFly (four 3x3
-  stride-2 convs, flax's "SAME" padding, and a Linear to 8 features),
-  whose features replace the pixels before the policy's or the critic's
-  MLP (reference vnl_ray/agents/vis_net.py:30-109)
+  stride-2 convs, flax's "SAME" padding, and a Linear to 8 features), or
+  the rodent's one egocentric camera through VisNetRodent (four 3x3
+  "VALID" convs at strides 1, 1, 2, 2, and a Linear to 8 features), whose
+  features replace the pixels before the policy's or the critic's MLP
+  (reference vnl_ray/agents/vis_net.py:30-202)
 
 Observation dicts flatten in sorted key order (``obs_layout``). The
 parameters start as flax's would: ``lecun_normal`` kernels (a normal
@@ -271,6 +273,50 @@ class VisNetFly(nn.Module):
         return self.dense(x).reshape(tuple(lead) + (-1,))
 
 
+class VisNetRodent(nn.Module):
+    """Egocentric-camera conv net (reference vnl_ray/agents/vis_net.py:
+    112-202): a grayscale camera (an RGB one averaged over its channels
+    first), normalized, four 3x3 "VALID" convs with relu, features /
+    stride (2, 1) (4, 1) (8, 2) (16, 2), flattened in flax's (H, W, C)
+    order, then a Linear to ``out_features``."""
+
+    CONVS = ((2, 1), (4, 1), (8, 2), (16, 2))
+
+    def __init__(self, camera_shape=(32, 32), out_features: int = 8,
+                 norm_mean: float = 77.0, norm_std: float = 56.0,
+                 generator=None):
+        super().__init__()
+        self.norm_mean, self.norm_std = norm_mean, norm_std
+        self.camera_shape = tuple(camera_shape)
+        self.rgb = len(self.camera_shape) == 3 and self.camera_shape[-1] == 3
+        h, w = self.camera_shape[:2]
+        convs, c_in = [], 1
+        for c_out, stride in self.CONVS:
+            convs.append(nn.utils.skip_init(nn.Conv2d, c_in, c_out, 3,
+                                            stride=stride))
+            h, w = (h - 3) // stride + 1, (w - 3) // stride + 1
+            c_in = c_out
+        self.convs = nn.ModuleList(convs)
+        self.dense = _linear(c_in * h * w, out_features)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None) -> None:
+        for conv in self.convs:
+            _conv_init(conv, generator)
+        _dense_init(self.dense, 1.0, generator)
+
+    def forward(self, camera: torch.Tensor) -> torch.Tensor:
+        if self.rgb:
+            camera = camera.mean(dim=-1)
+        lead = camera.shape[:-2]
+        x = camera.reshape((-1, 1) + tuple(camera.shape[-2:]))
+        x = (x - self.norm_mean) / self.norm_std
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.dense(x).reshape(tuple(lead) + (-1,))
+
+
 def _drop_slices(x: torch.Tensor, spans) -> torch.Tensor:
     """Remove the [start, start + size) spans from the last axis."""
     parts, pos = [], 0
@@ -283,9 +329,10 @@ def _drop_slices(x: torch.Tensor, spans) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
-def _vis_features(vis: VisNetFly, eye_slices, obs: torch.Tensor):
-    """The two eyes' slices of the flat ``obs`` through ``vis`` ->
-    (features, the obs without the eye slices)."""
+def _vis_features(vis: nn.Module, eye_slices, obs: torch.Tensor):
+    """The image slices of the flat ``obs`` through ``vis`` (two eyes
+    through VisNetFly, one camera through VisNetRodent) -> (features, the
+    obs without the image slices)."""
     views = [obs[..., s:s + sz].reshape(tuple(obs.shape[:-1]) + tuple(shape))
              for s, sz, shape in eye_slices]
     return vis(*views), _drop_slices(obs, [(s, sz)
@@ -295,15 +342,23 @@ def _vis_features(vis: VisNetFly, eye_slices, obs: torch.Tensor):
 def _check_eyes(eye_slices) -> tuple:
     eye_slices = tuple((int(s), int(sz), tuple(shape))
                        for s, sz, shape in eye_slices)
-    if len(eye_slices) != 2:
-        raise ValueError(f"VisNetFly reads two eyes, got {len(eye_slices)} "
-                         "image slices")
+    if len(eye_slices) not in (1, 2):
+        raise ValueError("the vision front-end reads two eyes (VisNetFly) "
+                         f"or one camera (VisNetRodent), got "
+                         f"{len(eye_slices)} image slices")
     return eye_slices
 
 
+def _vis_net(eye_slices, vis_features: int, generator) -> nn.Module:
+    """VisNetFly for the fly's two eyes, VisNetRodent for one camera."""
+    net = VisNetFly if len(eye_slices) == 2 else VisNetRodent
+    return net(eye_slices[0][2], vis_features, generator=generator)
+
+
 class VisionPolicy(nn.Module):
-    """Policy with the eye front-end: VisNetFly's features replace the
-    flat observation's eye pixels before the MLP policy."""
+    """Policy with the image front-end: VisNetFly's (two eyes) or
+    VisNetRodent's (one camera) features replace the flat observation's
+    pixels before the MLP policy."""
 
     def __init__(self, obs_size: int, action_size: int, eye_slices,
                  layer_sizes: Sequence[int] = (256, 256, 256),
@@ -312,8 +367,7 @@ class VisionPolicy(nn.Module):
         super().__init__()
         self.eye_slices = _check_eyes(eye_slices)
         rest = obs_size - sum(sz for _, sz, _ in self.eye_slices)
-        self.vis = VisNetFly(self.eye_slices[0][2], vis_features,
-                             generator=generator)
+        self.vis = _vis_net(self.eye_slices, vis_features, generator)
         self.mlp = LayerNormMLP(vis_features + rest, layer_sizes,
                                 activate_final=True, generator=generator)
         self.head = NormalDiagHead(layer_sizes[-1], action_size,
@@ -339,8 +393,7 @@ class VisionCritic(nn.Module):
         super().__init__()
         self.eye_slices = _check_eyes(eye_slices)
         rest = obs_size - sum(sz for _, sz, _ in self.eye_slices)
-        self.vis = VisNetFly(self.eye_slices[0][2], vis_features,
-                             generator=generator)
+        self.vis = _vis_net(self.eye_slices, vis_features, generator)
         self.mlp = LayerNormMLP(vis_features + rest + action_size,
                                 layer_sizes, activate_final=True,
                                 generator=generator)

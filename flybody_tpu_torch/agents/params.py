@@ -7,7 +7,8 @@ A flax tree arrives as nested dicts of numpy arrays, e.g. the policy's
                 "NormalDiagHead_0": {"Dense_0": ..., "Dense_1": ...}}}
 
 A flax Dense kernel is (in, out); a torch Linear weight is (out, in). The
-vision networks' ``VisNetFly_0`` subtree goes to their ``vis`` module. An
+vision networks' ``VisNetFly_0`` or ``VisNetRodent_0`` subtree goes to
+their ``vis`` module. An
 IntentionPolicy's tree has ``encoder`` ({LayerNormMLP_0, NormalDiagHead_0}
 or, two-level, {LayerNormMLP_0, NormalDiagHead_0, LayerNormMLP_1,
 NormalDiagHead_1}) and ``decoder`` ({LayerNormMLP_0, Dense_0}).
@@ -56,9 +57,15 @@ def _intention(out: dict, p: dict) -> None:
     _dense(out, "decoder.mean", p["decoder"]["Dense_0"])
 
 
-def _visnet(out: dict, node: dict) -> None:
-    """flax VisNetFly: a Conv kernel is (kh, kw, in, out), a torch Conv2d
-    weight (out, in, kh, kw)."""
+VISNETS = ("VisNetFly_0", "VisNetRodent_0")
+
+
+def _visnet(out: dict, p: dict) -> None:
+    """flax VisNetFly or VisNetRodent, where ``p`` has one: a Conv kernel
+    is (kh, kw, in, out), a torch Conv2d weight (out, in, kh, kw)."""
+    node = next((p[k] for k in VISNETS if k in p), None)
+    if node is None:
+        return
     n = sum(k.startswith("Conv_") for k in node)
     for i in range(n):
         conv = node[f"Conv_{i}"]
@@ -76,8 +83,7 @@ def policy_state_dict(variables: dict) -> dict:
     if "encoder" in p:
         _intention(out, p)
         return out
-    if "VisNetFly_0" in p:
-        _visnet(out, p["VisNetFly_0"])
+    _visnet(out, p)
     _mlp(out, p["LayerNormMLP_0"])
     _head(out, "head", p["NormalDiagHead_0"])
     return out
@@ -88,8 +94,7 @@ def critic_state_dict(variables: dict) -> dict:
     state_dict of DistributionalCritic or VisionCritic."""
     p = variables.get("params", variables)
     out = {}
-    if "VisNetFly_0" in p:
-        _visnet(out, p["VisNetFly_0"])
+    _visnet(out, p)
     _mlp(out, p["LayerNormMLP_0"])
     _dense(out, "logits", p["Dense_0"])
     return out

@@ -3,15 +3,21 @@
 
 Rate limiting (samples_per_insert) is a deterministic number of updates per
 rollout chunk. Everything lives on the env's device: the networks, the
-replay ring, the generators. Network modes (reference train_dmpo_ray.py +
-intention_network_factory.py + vis_net.py):
+replay ring, the generators. Over W data-parallel ranks
+(``parallel.distributed``) the TrainerConfig's sizes stay global: each
+rank steps num_envs / W envs into its own ring of replay_capacity / W,
+gated at min_replay_size / W, and samples batch_size / W items per update;
+the updates per iteration come from the global counts, the learner
+all-reduces its gradients, and the metrics are those of the global batch
+(``parallel.mesh.reduce_metrics``). Network modes (reference
+train_dmpo_ray.py + intention_network_factory.py + vis_net.py):
 
 * "plain": MLP policy + distributional critic
 * "intention": encoder-decoder policy over task-first observations, the
   latent sampled on the actor path, an optional latent KL term, and a
   decoder that can be restored from a donor and frozen (transfer)
-* "vision": the fly's two eyes through VisNetFly in both networks; the
-  rodent's one-camera VisNetRodent comes with its camera (ROADMAP A7d)
+* "vision": the fly's two eyes through VisNetFly, or the rodent's one
+  egocentric camera through VisNetRodent, in both networks
 
 Kickstarting distills from a frozen teacher policy by KL (reference
 learning_dmpo.py:361-373).
@@ -36,6 +42,8 @@ from flybody_tpu_torch.agents.networks import (DistributionalCritic,
                                                VisionCritic, VisionPolicy,
                                                make_policy_critic, obs_layout)
 from flybody_tpu_torch.agents.replay import ReplayBuffer
+from flybody_tpu_torch.parallel import distributed as D
+from flybody_tpu_torch.parallel.mesh import reduce_metrics
 
 # default task-observation keys that an intention policy's encoder reads
 # (reference train_dmpo_ray.py separate_observation task prefixes)
@@ -135,6 +143,24 @@ class TrainerBase:
         cfg.rollout.discount = cfg.dmpo.discount
         self._stat_keys = None  # the learner's stat names, once known
 
+    def _rank_generators(self, train: TrainState,
+                         seed: int) -> torch.Generator:
+        """The rollout and sampling generator from ``seed``, and the
+        learner's own generator (target-action normals) reseeded, each
+        from (its seed, this rank): on rank 0 they draw as one process
+        does, and no two ranks draw the same noise."""
+        self.rank_learner_generator(train)
+        return torch.Generator(self.device).manual_seed(D.rank_seed(seed))
+
+    @staticmethod
+    def rank_learner_generator(train: TrainState) -> None:
+        """On a rank > 0, reseed the learner's generator from (its seed,
+        the rank): after init, and after every rank restored rank 0's
+        checkpoint."""
+        if D.rank():
+            train.generator.manual_seed(
+                D.rank_seed(train.generator.initial_seed()))
+
     def _zero_transition(self, n: int) -> Transition:
         z = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
         return Transition(obs=z(n, self.obs_size), action=z(n,
@@ -228,27 +254,35 @@ class DMPOTrainer(TrainerBase):
         self.rollout_fn = make_rollout_fn(
             env, cfg.rollout, obs_keys=self.obs_keys,
             action_delay=cfg.action_delay)
+        # this rank's share of the global sizes
+        self.num_envs = D.process_env_slice(cfg.num_envs)[0]
+        self.replay_capacity = D.share(cfg.replay_capacity,
+                                       "replay_capacity")
+        self.min_replay_size = D.share(cfg.min_replay_size,
+                                       "min_replay_size")
+        self.batch_size = D.share(cfg.dmpo.batch_size, "batch_size")
         # with the cross-chunk tail every control step starts one n-step
         # window: inserted = num_envs * unroll_length, and every inserted
-        # transition is sampled ~samples_per_insert times
+        # transition is sampled ~samples_per_insert times; from the global
+        # counts, so every rank makes as many updates (and collectives)
         inserted = cfg.num_envs * cfg.unroll_length
         self.updates_per_iter = max(
             1, int(inserted * cfg.samples_per_insert // cfg.dmpo.batch_size))
 
     def _vision_nets(self):
-        """The fly's stereo eyes through VisNetFly in the policy and the
-        critic (reference vis_net.py:30-109)."""
+        """The fly's stereo eyes through VisNetFly, or the rodent's one
+        egocentric camera through VisNetRodent, in the policy and the
+        critic (reference vis_net.py:30-109 / 112-202)."""
         cfg = self.cfg
         eye_slices = tuple(self.obs_slices[k] for k in EYE_KEYS
                            if k in self.obs_slices)
         if len(eye_slices) != 2:
-            if "egocentric_camera" in self.obs_slices:
-                raise NotImplementedError(
-                    "the one-camera VisNetRodent is not ported yet "
-                    "(ROADMAP A7d)")
-            raise ValueError(
-                f"vision network needs {EYE_KEYS} observations; the env "
-                f"has {sorted(self.obs_slices)}")
+            if "egocentric_camera" not in self.obs_slices:
+                raise ValueError(
+                    f"vision network needs {EYE_KEYS} or an "
+                    f"egocentric_camera observation; env has "
+                    f"{sorted(self.obs_slices)}")
+            eye_slices = (self.obs_slices["egocentric_camera"],)
         policy = VisionPolicy(self.obs_size, self.action_size, eye_slices,
                               layer_sizes=tuple(cfg.policy_layers))
         critic = VisionCritic(self.obs_size, self.action_size, eye_slices,
@@ -258,14 +292,17 @@ class DMPOTrainer(TrainerBase):
         return policy, critic
 
     def init(self, seed: int = 0) -> LoopState:
+        """This rank's loop state: the train state from ``seed`` (the same
+        on every rank; ``distributed.make_global_loop_state`` also
+        broadcasts it), this rank's envs, ring and tail."""
         g = torch.Generator().manual_seed(seed)
         train = self.learner.init(g)
-        loop_gen = torch.Generator(self.device).manual_seed(
-            int(torch.randint(2 ** 62, (1,), generator=g)))
-        env_states = self.env.reset(self.cfg.num_envs, loop_gen)
-        replay = ReplayBuffer(self.cfg.replay_capacity,
+        loop_gen = self._rank_generators(
+            train, int(torch.randint(2 ** 62, (1,), generator=g)))
+        env_states = self.env.reset(self.num_envs, loop_gen)
+        replay = ReplayBuffer(self.replay_capacity,
                               self._zero_transition(1), device=self.device)
-        tail = init_rollout_tail(self.cfg.rollout, self.cfg.num_envs,
+        tail = init_rollout_tail(self.cfg.rollout, self.num_envs,
                                  self.obs_size, self.action_size,
                                  dtype=self.dtype, device=self.device)
         return LoopState(train=train, env_states=env_states, replay=replay,
@@ -275,18 +312,23 @@ class DMPOTrainer(TrainerBase):
     def train_iteration(self, loop: LoopState):
         """rollout -> insert -> updates, in place on ``loop``; returns
         (loop, metrics). Below min_replay_size the updates are skipped and
-        the learner stats are zeros with the same keys."""
+        the learner stats are zeros with the same keys. Over W ranks the
+        counts (actor steps, replay size) and the metrics are global."""
         cfg = self.cfg
         env_states, tail, transitions, actor_metrics = self.rollout_fn(
             loop.train.policy, loop.env_states, loop.rollout_tail,
             loop.generator)
         loop.env_states, loop.rollout_tail = env_states, tail
+        # every rank inserts as many items, so the gate below opens on
+        # every rank in the same iteration
+        assert transitions.reward.shape[0] == \
+            self.num_envs * cfg.unroll_length
         loop.replay.insert(transitions)
 
-        if loop.replay.size >= cfg.min_replay_size:
+        if loop.replay.size >= self.min_replay_size:
             stats = [self.learner.update(
                 loop.train, loop.replay.sample(loop.generator,
-                                               cfg.dmpo.batch_size))
+                                               self.batch_size))
                 for _ in range(self.updates_per_iter)]
             learn = {k: torch.stack([s[k] for s in stats]).mean()
                      for k in stats[0]}
@@ -295,8 +337,8 @@ class DMPOTrainer(TrainerBase):
                      for k in self.stat_keys(loop.train)}
 
         loop.actor_steps += cfg.num_envs * cfg.unroll_length
-        metrics = {**actor_metrics, **learn,
-                   "replay_size": loop.replay.size,
+        metrics = {**reduce_metrics({**actor_metrics, **learn}),
+                   "replay_size": loop.replay.size * D.world_size(),
                    "actor_steps": loop.actor_steps,
                    "learner_steps": loop.train.steps}
         return loop, metrics

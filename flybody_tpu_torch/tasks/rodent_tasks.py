@@ -11,7 +11,10 @@ state, each leaf with the env axis last.
 Every task adds the reference's normalization extras: a ``task_logic``
 observation (0, or the two-touch state) and an ``origin`` observation
 (the world origin in the torso frame), so specialist policies share one
-observation signature (reference rodent_tasks_modified.py:31-39).
+observation signature (reference rodent_tasks_modified.py:31-39). With
+``use_vision`` every task also observes ``egocentric_camera``, (B, 32,
+32): a head-mounted camera rendered on the device by the raycaster of
+``ops/raycast.py`` (``render_camera``).
 
 Random draws come from the env's generator on its device, in a fixed
 order per task, or are given as keywords (the parity tests pass the JAX
@@ -30,10 +33,20 @@ import torch
 from flybody_tpu_torch.envs.core import Task
 from flybody_tpu_torch.envs.rodent_walker import RodentWalker
 from flybody_tpu_torch.math import quaternions as mq
+from flybody_tpu_torch.ops import raycast
+from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.types import Data, Model
 from flybody_tpu_torch.utils import rewards as rw
 
 _UPRIGHT_COS = float(np.cos(np.deg2rad(30.0)))
+# the egocentric camera: the primitive geoms it sees (the largest, to
+# bound the cost per pixel), its range, and its frame in the head's:
+# its view axis -z along the head's +x, its up axis +y along the head's +z
+CAMERA_GEOMS = 16
+CAMERA_MAX_DIST = 4.0
+_CAM_FIX = np.array([[0.0, 0.0, -1.0],
+                     [-1.0, 0.0, 0.0],
+                     [0.0, 1.0, 0.0]])
 _LINEAR = dict(sigmoid="linear", value_at_margin=0.0)
 
 
@@ -58,14 +71,67 @@ class RodentTaskBase(Task):
     deterministic_init = False
 
     def __init__(self, walker: RodentWalker, time_limit: float,
-                 use_vision: bool = False):
-        if use_vision:
-            raise NotImplementedError(
-                "the rodent's egocentric camera is not ported yet (ROADMAP "
-                "A7d)")
+                 use_vision: bool = False, camera_size: int = 32):
         self.walker = walker
         self.time_limit = time_limit
         self.action_size = walker.action_size
+        self.use_vision = use_vision
+        self.camera_size = camera_size
+        if use_vision:
+            self._init_camera(walker.model, camera_size)
+
+    def _init_camera(self, model: Model, size: int) -> None:
+        """The head-mounted forward camera (the reference rodent tasks'
+        walker/egocentric_camera, dm_control rodent.py), rendered by the
+        raycaster over the put model's heightfield, if it has one, and the
+        16 largest primitive geoms outside the head (the camera sits in
+        the skull)."""
+        dev, dtype = model.device, model.dtype
+        # float32 rays, as the JAX package's camera_rays default
+        self.cam_rays = raycast.camera_rays(90.0, size, size,
+                                            device=dev).to(dtype)
+        gt = np.asarray(model.geom_type)
+        gs = model.geom_size.detach().cpu().numpy()
+        gb = np.asarray(model.geom_bodyid)
+        prim = np.nonzero((gt != T.GEOM_PLANE) & (gt != T.GEOM_HFIELD)
+                          & (gb != self.walker.head_body_id))[0]
+        if len(prim):
+            # numpy's default sort on the same sizes as the JAX package:
+            # the rat's left and right limbs tie
+            order = np.argsort(-gs[prim].max(axis=-1))
+            prim = prim[order[:CAMERA_GEOMS]]
+        self.camera_geoms = prim
+        self.scene_cast, has_scene = raycast.make_scene_raycaster(model, prim)
+        if not has_scene:
+            self.scene_cast = None
+        self.height_fn = None
+        if model.nhfield:
+            hgeom = int(np.nonzero(gt == T.GEOM_HFIELD)[0][0])
+            self.height_fn = raycast.hfield_height_fn(
+                model.hfield_data[0], model.hfield_size[0],
+                model.geom_pos[hgeom].detach().cpu().numpy())
+        self.cam_off = torch.tensor([0.035, 0.0, 0.0], device=dev,
+                                    dtype=dtype)
+        self.cam_fix = torch.as_tensor(_CAM_FIX, device=dev).to(dtype)
+
+    def camera_pose(self, data: Data):
+        """World position (B, 3) and rotation (B, 3, 3) of every env's
+        camera: 0.035 ahead of the head body along its +x (snout) axis."""
+        head = self.walker.head_body_id
+        hpos = data.xpos[head].T
+        hmat = data.xmat[head].permute(2, 0, 1)
+        return (hpos + torch.einsum("bij,j->bi", hmat, self.cam_off),
+                hmat @ self.cam_fix)
+
+    def render_camera(self, data: Data, distance: bool = False):
+        """(B, H, W) egocentric camera intensity of every env (with
+        ``distance``, each pixel's nearest hit distance)."""
+        cam_pos, cam_mat = self.camera_pose(data)
+        return raycast.render_eye(
+            cam_pos, cam_mat, self.cam_rays, self.height_fn,
+            max_dist=CAMERA_MAX_DIST, scene_cast=self.scene_cast,
+            geom_xpos=data.geom_xpos.permute(2, 0, 1),
+            geom_xmat=data.geom_xmat.permute(3, 0, 1, 2), distance=distance)
 
     def action_bounds(self, model: Model):
         return self.walker.action_bounds(model)
@@ -97,6 +163,8 @@ class RodentTaskBase(Task):
         obs = self.walker.observables(model, data, sensor_mean)
         obs["origin"] = self.walker.origin_obs(data)
         obs["task_logic"] = data.qpos.new_zeros((data.qpos.shape[-1], 1))
+        if self.use_vision:
+            obs["egocentric_camera"] = self.render_camera(data)
         return obs
 
     def observations(self, model, data, ts, sensor_mean) -> dict:

@@ -1,6 +1,6 @@
 """DMPO training entry point of the PyTorch port (reference
 train_dmpo_ray.py): batched rollout, on-device replay and the learner on
-one device. Usage:
+one device, or on one device per rank under torchrun. Usage:
 
     python -m flybody_tpu_torch.train_dmpo --task walk_on_ball \
         --num-envs 256 --iterations 1000 --log-every 10 [--test]
@@ -14,8 +14,19 @@ intention (``--network intention`` and its five flags) and vision
 (``--network vision``) networks, multi-task training (``--task-envs
 task:n,task:n`` or a YAML ``task_envs``), decoder transfer
 (``--transfer-ckpt``: restore a donor's decoder and freeze it) and
-kickstarting (``--kickstart-ckpt``). The rodent's egocentric camera is not
-ported yet (ROADMAP A7d).
+kickstarting (``--kickstart-ckpt``). The rodent's egocentric camera is
+reached through the Python API (``rodent_envs.*(use_vision=True)``), as in
+the JAX package.
+
+Under torchrun it trains data-parallel over one process per GPU:
+
+    torchrun --nproc_per_node 4 -m flybody_tpu_torch.train_dmpo ...
+
+Each rank runs on ``cuda:LOCAL_RANK`` (``--device cpu``: gloo on the
+CPU); ``--num-envs`` and the config's sizes stay global, as in the JAX
+CLI. Rank 0 alone logs, writes the CSV and saves checkpoints; every rank
+resumes and loads ``--transfer-ckpt`` / ``--kickstart-ckpt``, and the
+logged metrics are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -205,28 +216,38 @@ def main(argv=None):
                 raise ValueError(f"--{k.replace('_', '-')} is read only by "
                                  "--network intention")
     from flybody_tpu_torch.io import checkpoint as ckpt
-    from flybody_tpu_torch.utils.loggers import make_default_logger
+    from flybody_tpu_torch.parallel import distributed as D
+    from flybody_tpu_torch.utils.loggers import (Dispatcher,
+                                                 make_default_logger)
 
+    # under torchrun: join the group (a no-op for one process), one GPU
+    # per rank
+    owns_group = not D.in_group() and D.init(args.device)
+    args.device = D.rank_device(args.device)
+    lead = D.rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = trainer_config(args)
     trainer = build_trainer(args, cfg)
     tasks = ",".join(getattr(trainer, "names", (args.task,)))
-    print(f"task {tasks}: {trainer.obs_size} observation floats, "
-          f"{trainer.action_size} actions, network {args.network}, on "
-          f"{trainer.device}", flush=True)
+    say(f"task {tasks}: {trainer.obs_size} observation floats, "
+        f"{trainer.action_size} actions, network {args.network}, on "
+        f"{trainer.device}" + (f", {D.world_size()} ranks"
+                               if D.in_group() else ""), flush=True)
     if args.kickstart_ckpt:
         trainer.load_teacher(ckpt.restore_policy_params(args.kickstart_ckpt),
                              args.kickstart_epsilon)
-    logger = make_default_logger("learner", save_csv=bool(args.ckpt_dir),
-                                 csv_dir=args.ckpt_dir or "logs")
+    logger = make_default_logger(
+        "learner", save_csv=bool(args.ckpt_dir),
+        csv_dir=args.ckpt_dir or "logs") if lead else Dispatcher([])
 
-    loop = trainer.init(args.seed)
+    loop = D.make_global_loop_state(trainer, args.seed)
     if args.transfer_ckpt:
         trainer.restore_decoder(
             loop.train, ckpt.restore_policy_params(args.transfer_ckpt))
-        print(f"transfer: decoder restored from {args.transfer_ckpt} and "
-              "frozen", flush=True)
+        say(f"transfer: decoder restored from {args.transfer_ckpt} and "
+            "frozen", flush=True)
     ckptr = (ckpt.PeriodicCheckpointer(args.ckpt_dir, args.ckpt_minutes)
-             if args.ckpt_dir else None)
+             if args.ckpt_dir and lead else None)
     # checkpoints carry the learner state only (networks, optimizers,
     # duals, step counters): the replay ring is GBs, and a resumed run
     # refills it through the min_replay gate
@@ -237,10 +258,11 @@ def main(argv=None):
         try:
             loop.actor_steps = ckpt.restore(resume,
                                             ckpt_view(loop))["actor_steps"]
-            print(f"resumed from {resume}")
+            trainer.rank_learner_generator(loop.train)
+            say(f"resumed from {resume}")
         except ValueError as e:
-            print(f"WARNING: checkpoint {resume} does not match the current "
-                  f"run structure ({e}); starting fresh")
+            say(f"WARNING: checkpoint {resume} does not match the current "
+                f"run structure ({e}); starting fresh")
 
     t0 = time.time()
     steps0 = loop.actor_steps
@@ -251,28 +273,36 @@ def main(argv=None):
             dt = time.time() - t0
             sps = (loop.actor_steps - steps0) / max(dt, 1e-9)
             t0, steps0 = time.time(), loop.actor_steps
-            logger.write({
+            logger.write(D.host_allreduce_metrics({
                 "iteration": it + 1,
                 "actor_steps": loop.actor_steps,
                 "learner_steps": metrics["learner_steps"],
                 "actor_sps": sps,
-                "episode_return": float(metrics["mean_episode_return"]),
-                "reward": float(metrics["mean_reward"]),
+                "episode_return": metrics["mean_episode_return"],
+                "reward": metrics["mean_reward"],
                 "critic_loss": critic_loss,
-                "dual_temperature": float(metrics["dual_temperature"]),
-                "obs_absmax": float(metrics["obs_absmax"]),
-                **({"intention_kl": float(metrics["intention_kl"])}
+                "dual_temperature": metrics["dual_temperature"],
+                "obs_absmax": metrics["obs_absmax"],
+                **({"intention_kl": metrics["intention_kl"]}
                    if "intention_kl" in metrics else {}),
-            })
+            }))
             if metrics["learner_steps"] > 0 and not math.isfinite(
                     critic_loss):
-                print("FATAL: non-finite learner stats; aborting run")
+                # the same global loss on every rank: all stop here
+                say("FATAL: non-finite learner stats; aborting run")
                 logger.close()
-                return 1
+                return _finish(1, owns_group)
         if ckptr is not None:
             ckptr.maybe_save(ckpt_view(loop), it)
     logger.close()
-    return 0
+    return _finish(0, owns_group)
+
+
+def _finish(rc: int, owns_group: bool) -> int:
+    if owns_group:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    return rc
 
 
 if __name__ == "__main__":

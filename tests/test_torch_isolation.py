@@ -64,7 +64,10 @@ def test_import_leaves_jax_unloaded():
             "flybody_tpu_torch.envs.humanoid_walker, "
             "flybody_tpu_torch.io.stac, "
             "flybody_tpu_torch.inverse_kinematics, "
-            "flybody_tpu_torch.render_stac; "
+            "flybody_tpu_torch.render_stac, "
+            "flybody_tpu_torch.parallel.distributed, "
+            "flybody_tpu_torch.parallel.mesh, "
+            "flybody_tpu_torch.parallel.dryrun; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
