@@ -18,6 +18,7 @@ import torch
 
 from flybody_tpu_torch.agents.dmpo import Transition
 from flybody_tpu_torch.agents.networks import batch_concat
+from flybody_tpu_torch.utils import telemetry as tm
 
 _TRANSITION_KEYS = ("obs", "action", "reward", "discount", "done",
                     "obs_after", "episode_return")
@@ -95,16 +96,18 @@ def make_rollout_fn(env, cfg: RolloutConfig, stochastic: bool = True,
     hi = torch.as_tensor(hi, dtype=env.dtype, device=env.device)
 
     @torch.no_grad()
+    @tm.spanned("actor.rollout")
     def rollout(policy, env_states, tail, generator):
         n_env = env_states.done.shape[0]
         delay_buf = torch.zeros((max(action_delay, 1), n_env, lo.shape[0]),
                                 dtype=env.dtype, device=env.device)
         steps = {k: [] for k in _TRANSITION_KEYS}
-        key_max = {}
         for _ in range(cfg.unroll_length):
             obs_flat = flat_obs(env_states.obs, obs_keys, obs_pad)
-            dist = actor_dist(policy, obs_flat, generator)
-            canonical = dist.sample(generator) if stochastic else dist.mode()
+            with tm.span("actor.policy"):
+                dist = actor_dist(policy, obs_flat, generator)
+                canonical = (dist.sample(generator) if stochastic
+                             else dist.mode())
             if action_delay > 0:
                 # fixed action-delay queue (reference DelayedFeedForward
                 # Actor, agents/actors.py:79-86)
@@ -115,20 +118,10 @@ def make_rollout_fn(env, cfg: RolloutConfig, stochastic: bool = True,
                                                              hi))
             obs_after = flat_obs(stepped.obs, obs_keys, obs_pad)
             env_states = env.apply_autoreset(stepped)
-            # per-key obs maxima, live vs terminal: which observable
-            # saturates the env clamp, and whether clamp hits are terminal
-            # readings
-            done = stepped.done
-            for k, v in stepped.obs.items():
-                mx = torch.abs(v).reshape(n_env, -1).amax(dim=1) \
-                    if v[0].numel() else torch.zeros_like(stepped.reward)
-                zero = torch.zeros_like(mx)
-                key_max.setdefault(k, []).append(torch.stack([
-                    torch.where(done, zero, mx).amax(),
-                    torch.where(done, mx, zero).amax()]))
             for k, v in (("obs", obs_flat), ("action", canonical),
                          ("reward", stepped.reward),
-                         ("discount", stepped.discount), ("done", done),
+                         ("discount", stepped.discount),
+                         ("done", stepped.done),
                          ("obs_after", obs_after),
                          ("episode_return",
                           stepped.metrics["episode_return"])):
@@ -150,15 +143,12 @@ def make_rollout_fn(env, cfg: RolloutConfig, stochastic: bool = True,
                                       0.0))
                 / torch.clamp_min(n_done, 1)),
         }
-        for k, per_step in key_max.items():
-            live, term = torch.stack(per_step).amax(dim=0)
-            metrics[f"obs_max/{k}"] = live
-            metrics[f"obs_max_terminal/{k}"] = term
         return env_states, new_tail, transitions, metrics
 
     return rollout
 
 
+@tm.spanned("actor.nstep")
 def nstep_from_trajectory(traj: dict, cfg: RolloutConfig) -> Transition:
     """Assemble overlapping n-step transitions from a (T, B, ...) rollout.
 

@@ -33,6 +33,7 @@ from flybody_tpu_torch.agents.distributions import NormalDiag
 from flybody_tpu_torch.agents.losses_mpo import DualParams, MPOConfig
 from flybody_tpu_torch.parallel import distributed as D
 from flybody_tpu_torch.parallel.mesh import allreduce_grads_
+from flybody_tpu_torch.utils import telemetry as tm
 
 
 @dataclasses.dataclass
@@ -260,38 +261,45 @@ class DMPOLearner:
                                                a_t, q_values)
         return critic_loss, policy_loss, stats
 
+    @tm.spanned("learner.update")
     def update(self, state: TrainState, batch: Transition, eps=None) -> dict:
         """One step over the three parameter groups, in place on
         ``state``; returns the stats as 0-d device tensors."""
         cfg = self.cfg
-        critic_loss, policy_loss, stats = self.losses(state, batch, eps)
+        with tm.span("learner.losses"):
+            critic_loss, policy_loss, stats = self.losses(state, batch, eps)
         opts = (state.policy_opt, state.critic_opt, state.dual_opt)
-        for opt in opts:
-            opt.zero_grad(set_to_none=True)
-        # the two losses share no parameter: one backward gives both
-        (critic_loss + policy_loss).backward()
-        if D.in_group():
-            # data-parallel ranks: each loss is a mean over the batch of
-            # per-state terms, so the mean of the shards' gradients is the
-            # gradient of the whole batch
-            allreduce_grads_([*state.policy.parameters(),
-                              *state.critic.parameters(),
-                              *state.dual_params.parameters()])
-        # a frozen decoder has no gradients, so it adds nothing to the norm
-        # (as its zeroed gradients add nothing in the JAX package's chain)
-        clip_by_global_norm_(state.policy.parameters(), cfg.clip_global_norm)
-        clip_by_global_norm_(state.critic.parameters(), cfg.clip_global_norm)
-        for opt in opts:
-            opt.step()
-        losses_mpo.clip_dual_params_(state.dual_params)
+        with tm.span("learner.backward"):
+            for opt in opts:
+                opt.zero_grad(set_to_none=True)
+            # the two losses share no parameter: one backward gives both
+            (critic_loss + policy_loss).backward()
+            if D.in_group():
+                # data-parallel ranks: each loss is a mean over the batch
+                # of per-state terms, so the mean of the shards' gradients
+                # is the gradient of the whole batch
+                allreduce_grads_([*state.policy.parameters(),
+                                  *state.critic.parameters(),
+                                  *state.dual_params.parameters()])
+        with tm.span("learner.optim"):
+            # a frozen decoder has no gradients, so it adds nothing to the
+            # norm (as its zeroed gradients add nothing in the JAX
+            # package's chain)
+            clip_by_global_norm_(state.policy.parameters(),
+                                 cfg.clip_global_norm)
+            clip_by_global_norm_(state.critic.parameters(),
+                                 cfg.clip_global_norm)
+            for opt in opts:
+                opt.step()
+            losses_mpo.clip_dual_params_(state.dual_params)
 
-        state.steps += 1
-        if state.steps % cfg.target_policy_update_period == 0:
-            _copy_params(state.target_policy, state.policy)
-            state.target_policy_copies += 1
-        if state.steps % cfg.target_critic_update_period == 0:
-            _copy_params(state.target_critic, state.critic)
-            state.target_critic_copies += 1
+            state.steps += 1
+            if state.steps % cfg.target_policy_update_period == 0:
+                _copy_params(state.target_policy, state.policy)
+                state.target_policy_copies += 1
+            if state.steps % cfg.target_critic_update_period == 0:
+                _copy_params(state.target_critic, state.critic)
+                state.target_critic_copies += 1
 
         stats = {k: v.detach() for k, v in stats.items()}
         stats["critic_loss"] = critic_loss.detach()

@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from flybody_tpu_torch.utils import telemetry as tm
+
 
 def _fields(x) -> dict:
     if dataclasses.is_dataclass(x):
@@ -36,6 +38,7 @@ class ReplayBuffer:
         self.insert_pos = 0
         self.size = 0
 
+    @tm.spanned("replay.insert")
     def insert(self, batch) -> None:
         """Write a batch (leading dim K <= capacity) at the ring
         position."""
@@ -52,6 +55,7 @@ class ReplayBuffer:
         self.insert_pos = (self.insert_pos + k) % self.capacity
         self.size = min(self.size + k, self.capacity)
 
+    @tm.spanned("replay.sample")
     def sample(self, generator: torch.Generator | None, batch_size: int):
         """Uniform sample of ``batch_size`` items (with replacement) over
         the filled prefix, as the example's type."""

@@ -24,6 +24,7 @@ from flybody_tpu_torch.physics import forward as F
 from flybody_tpu_torch.physics import io_mj
 from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.types import Data, Model
+from flybody_tpu_torch.utils import telemetry as tm
 
 
 @dataclasses.dataclass
@@ -142,6 +143,7 @@ class FlyEnv:
         lo, hi = self.task.action_bounds(self.model)
         return np.asarray(lo), np.asarray(hi)
 
+    @tm.spanned("env.reset")
     def reset(self, B: int, generator: torch.Generator | None = None,
               **init_kw):
         """Batched EnvState of B fresh episodes; ``init_kw`` goes to the
@@ -163,29 +165,37 @@ class FlyEnv:
             rng=generator, task_state=task_state,
             metrics={"episode_return": zero})
 
+    @tm.spanned("env.step")
     def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
         model, task = self.model, self.task
         # NaN-action scrub before physics: a diverged actor cannot poison
         # the physics state
         action = torch.where(torch.isnan(action), torch.zeros_like(action),
                              action)
-        data, task_state = task.before_step(model, state.data,
-                                            state.task_state, action)
+        with tm.span("env.task"):
+            data, task_state = task.before_step(model, state.data,
+                                                state.task_state, action)
         # selection-persistent collision schedule: substep 0 of each
         # col_refresh block runs the full selection, the other r-1 refresh
         # geometry for the same lanes; r divides n_substeps
         r = int(model.col_refresh or 1)
+        # B1's rows x envs (0 where the fused solve is off)
+        rows = data.sol_f.numel()
         sensors = []
         for k in range(self.n_substeps):
             data = F.step(model, data, col_update=(r > 1 and k % r != 0))
             sensors.append(data.sensordata)
+            if rows:
+                tm.count("solver.rows", rows)
+                tm.count("solver.rows_used", data.sol_f)
         sensor_mean = torch.stack(sensors).mean(dim=0)
-        data, task_state = task.after_substeps(model, data, task_state)
-        draws = {"generator": state.rng} if task.step_draws else {}
-        reward, terminated, discount, task_state = task.reward_step(
-            model, data, task_state, sensor_mean, **draws)
-        # observations see the post-reward task state
-        obs = task.observations(model, data, task_state, sensor_mean)
+        with tm.span("env.task"):
+            data, task_state = task.after_substeps(model, data, task_state)
+            draws = {"generator": state.rng} if task.step_draws else {}
+            reward, terminated, discount, task_state = task.reward_step(
+                model, data, task_state, sensor_mean, **draws)
+            # observations see the post-reward task state
+            obs = task.observations(model, data, task_state, sensor_mean)
         # NaN hygiene at the env boundary: a blown-up episode terminates
         # with discount 0, and its terminal observation is scrubbed so
         # consumers never see non-finite or absurd values
@@ -207,17 +217,18 @@ class FlyEnv:
         """step() + apply_autoreset (batched lockstep rollouts)."""
         return self.apply_autoreset(self.step(state, action))
 
+    @tm.spanned("env.autoreset")
     def apply_autoreset(self, state: EnvState) -> EnvState:
         """Per-env episode reset where done. Only types.STATE_FIELDS are
         swapped; the terminal step's reward/done/discount stay visible.
         Tasks with deterministic_init build the fresh state at B=1 and
         broadcast it."""
-        B = state.done.shape[0]
-        if self.task.deterministic_init:
-            fresh = self.reset(1, state.rng)
-        else:
-            fresh = self.reset(B, state.rng)
+        built = 1 if self.task.deterministic_init else state.done.shape[0]
+        fresh = self.reset(built, state.rng)
         done = state.done
+        # the reset's useful share: envs done against envs built
+        tm.count("env.reset_built", built)
+        tm.count("env.done", done)
 
         def swap_tail(new, old):
             return torch.where(done, new, old)

@@ -146,8 +146,7 @@ def broadcast_train_state(train) -> None:
 def _reduce_op(key: str) -> str:
     if key == "episodes_done":
         return "sum"
-    if key == "obs_absmax" or key.startswith(("obs_max/",
-                                              "obs_max_terminal/")):
+    if key == "obs_absmax":
         return "max"
     return "mean"
 

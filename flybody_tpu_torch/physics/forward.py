@@ -21,31 +21,36 @@ from flybody_tpu_torch.physics import sensors as sens
 from flybody_tpu_torch.physics import smooth as S
 from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.types import Data, Model
+from flybody_tpu_torch.utils import telemetry as tm
+
+
+def _stage(name: str, fn, m: Model, d: Data, **kw) -> Data:
+    """``fn(m, d, **kw)`` inside the span ``physics.<name>``."""
+    with tm.span("physics." + name):
+        return fn(m, d, **kw)
 
 
 def fwd_position(m: Model, d: Data, col_update: bool = False) -> Data:
     """col_update=True runs the selection-persistent collision refresh
     (Model.col_refresh > 1 schedule) instead of the full selection."""
-    d = K.kinematics(m, d)
-    d = K.com_pos(m, d)
-    d = K.tendon(m, d)
-    d = S.crb(m, d)
-    d = col.collision_update(m, d) if col_update else col.collision(m, d)
-    d = S.transmission(m, d)
-    return d
+    d = _stage("kinematics", K.kinematics, m, d)
+    d = _stage("com_pos", K.com_pos, m, d)
+    d = _stage("tendon", K.tendon, m, d)
+    d = _stage("crb", S.crb, m, d)
+    d = _stage("collision",
+               col.collision_update if col_update else col.collision, m, d)
+    return _stage("transmission", S.transmission, m, d)
 
 
 def fwd_velocity(m: Model, d: Data) -> Data:
-    d = S.com_vel(m, d)
-    d = P.passive(m, d)
-    d = S.rne(m, d)
-    return d
+    d = _stage("com_vel", S.com_vel, m, d)
+    d = _stage("passive", P.passive, m, d)
+    return _stage("rne", S.rne, m, d)
 
 
 def fwd_actuation(m: Model, d: Data) -> Data:
-    d = A.act_dynamics(m, d)
-    d = A.actuation(m, d)
-    return d
+    d = _stage("act_dynamics", A.act_dynamics, m, d)
+    return _stage("actuation", A.actuation, m, d)
 
 
 def _xfrc_to_qfrc(m: Model, d: Data) -> torch.Tensor:
@@ -70,13 +75,13 @@ def smooth_forward(m: Model, d: Data, col_update: bool = False) -> Data:
     d = fwd_position(m, d, col_update=col_update)
     d = fwd_velocity(m, d)
     d = fwd_actuation(m, d)
-    return fwd_acceleration(m, d)
+    return _stage("acceleration", fwd_acceleration, m, d)
 
 
 def forward(m: Model, d: Data, col_update: bool = False) -> Data:
     """Full forward dynamics: qacc from (qpos, qvel, ctrl, act)."""
     d = smooth_forward(m, d, col_update=col_update)
-    return C.solve(m, d, fresh=not col_update)
+    return _stage("solve", C.solve, m, d, fresh=not col_update)
 
 
 def _integrate_qpos(m: Model, qpos, qvel, h):
@@ -134,5 +139,5 @@ def euler(m: Model, d: Data) -> Data:
 def step(m: Model, d: Data, col_update: bool = False) -> Data:
     """One physics step: forward dynamics + sensors + integration."""
     d = forward(m, d, col_update=col_update)
-    d = sens.sensor(m, d)
-    return euler(m, d)
+    d = _stage("sensor", sens.sensor, m, d)
+    return _stage("euler", euler, m, d)

@@ -5,62 +5,31 @@
 TASK is a ``train_dmpo --task`` (walk_on_ball by default,
 walk_imitation, flight_imitation, vision_guided_flight, rodent_two_touch,
 rodent_escape_bowl, rodent_run_gaps, rodent_maze_forage,
-rodent_walk_imitation, walk_humanoid). Prints (1) the
-host-clock time of each physics stage of one fresh and one update substep,
-each stage fenced by torch.cuda.synchronize, and of one batched
-``env.reset`` (the auto-reset of a task that draws its initial states runs
-one every control step), (2) on a task with eyes, the eye render as a
-stage of its own (both eyes, run twice per control step: the step's obs
-and the auto-reset's fresh batch): its host-clock ms, its device time and
-launches, its peak device memory and its share of the control step, and
-(3) a torch.profiler trace of one control step: device time by kernel, the
-device-busy total against the wall time, and the number of kernel
-launches. Needs a CUDA device.
+rodent_walk_imitation, walk_humanoid). Prints (1) the host-clock time of
+one batched ``env.reset`` (the auto-reset of a task that draws its
+initial states runs one every control step), (2) on a task with eyes,
+the eye render as a stage of its own (both eyes, run twice per control
+step: the step's obs and the auto-reset's fresh batch): its host-clock
+ms, its device time and launches, its peak device memory and its share
+of the control step, and (3) from one control step under torch.profiler,
+with no fence added inside it: device time by kernel, the device-busy
+total against the wall time, the number of kernel launches, one table
+per fresh and per update substep of the program's stage spans (host ms,
+device ms of the kernels launched inside the span, launches), the env's
+spans, and the program's counters (``utils/telemetry.py``). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
+import bisect
 import sys
 import time
 
 import torch
 
-from flybody_tpu_torch.physics import actuation as A
-from flybody_tpu_torch.physics import collision as COL
-from flybody_tpu_torch.physics import constraint as C
-from flybody_tpu_torch.physics import forward as F
-from flybody_tpu_torch.physics import kinematics as K
-from flybody_tpu_torch.physics import passive as P
-from flybody_tpu_torch.physics import sensors as S
-from flybody_tpu_torch.physics import smooth as SM
 from flybody_tpu_torch.train_dmpo import make_env
-
-
-def _stages(col_update: bool):
-    return (("kinematics", K.kinematics), ("com_pos", K.com_pos),
-            ("tendon", K.tendon), ("crb", SM.crb),
-            ("collision_update" if col_update else "collision",
-             COL.collision_update if col_update else COL.collision),
-            ("transmission", SM.transmission), ("com_vel", SM.com_vel),
-            ("passive", P.passive), ("rne", SM.rne),
-            ("act_dynamics", A.act_dynamics), ("actuation", A.actuation),
-            ("acceleration", F.fwd_acceleration),
-            ("solve", lambda m, d: C.solve(m, d, fresh=not col_update)),
-            ("sensor", S.sensor), ("euler", F.euler))
-
-
-def stage_times(m, d, col_update: bool, reps: int = 3) -> dict:
-    """Median host-clock seconds per stage, each fenced by a sync."""
-    out = {}
-    for _ in range(reps):
-        x = d
-        for name, fn in _stages(col_update):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            x = fn(m, x)
-            torch.cuda.synchronize()
-            out.setdefault(name, []).append(time.perf_counter() - t0)
-    return {k: sorted(v)[len(v) // 2] for k, v in out.items()}
+from flybody_tpu_torch.utils import telemetry as tm
 
 
 def device_rows(prof) -> list:
@@ -74,6 +43,83 @@ def device_rows(prof) -> list:
     return [a for a in events
             if a.device_type == torch.autograd.DeviceType.CUDA
             and a.key not in host]
+
+
+def timeline(prof) -> tuple:
+    """(spans, ops) of a stopped torch.profiler run: the program's spans
+    ``[(start ns, end ns, name)]`` (``physics.*``, ``env.*``), and its
+    device operations ``[(host start ns, device ns)]``, each placed at
+    the start of the host op that launched it (the link by which
+    ``key_averages`` gives an op its device time). Device ranges named
+    after a host event are left out, as ``device_rows`` leaves them."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.profiler.kineto_results.events()
+    host = [e for e in events if e.device_type() == cpu]
+    names = {e.name() for e in host}
+    front = {e.correlation_id(): e.start_ns() for e in host
+             if e.linked_correlation_id() == 0}
+    spans = sorted((e.start_ns(), e.end_ns(), e.name()) for e in host
+                   if e.name().startswith(("physics.", "env.")))
+    ops = sorted((front[e.linked_correlation_id()], e.duration_ns())
+                 for e in events if e.device_type() != cpu
+                 and e.name() not in names
+                 and e.linked_correlation_id() in front)
+    return spans, ops
+
+
+def _row(ops, starts, a: int, b: int) -> list:
+    """[host ms, device ms, launches] of the span [a, b)."""
+    i, j = bisect.bisect_left(starts, a), bisect.bisect_left(starts, b)
+    return [(b - a) / 1e6, sum(d for _, d in ops[i:j]) / 1e6, j - i]
+
+
+def substep_tables(spans, ops, col_refresh: int) -> dict:
+    """{"fresh" | "update": {stage span: [host ms, device ms, launches]}},
+    each the mean over the substeps of that kind in ``env.step`` (the
+    reset's stages left out), from ``timeline``. A substep opens with its
+    ``physics.kinematics`` span; substep k runs the full collision
+    selection where k % col_refresh == 0."""
+    starts = [a for a, _ in ops]
+    step = [(a, b) for a, b, n in spans if n == "env.step"]
+    reset = [(a, b) for a, b, n in spans if n == "env.reset"]
+    inside = lambda a, b, ivs: any(x <= a and b <= y for x, y in ivs)
+    r = max(int(col_refresh or 1), 1)
+    acc, seen, k = {}, {"fresh": 0, "update": 0}, -1
+    for a, b, n in spans:
+        if not (n.startswith("physics.") and inside(a, b, step)
+                and not inside(a, b, reset)):
+            continue
+        if n == "physics.kinematics":
+            k += 1
+            seen["fresh" if k % r == 0 else "update"] += 1
+        kind = "fresh" if k % r == 0 else "update"
+        row = acc.setdefault(kind, {}).setdefault(n, [0.0, 0.0, 0])
+        for i, v in enumerate(_row(ops, starts, a, b)):
+            row[i] += v
+    return {kind: {n: [v / seen[kind] for v in row]
+                   for n, row in t.items()}
+            for kind, t in acc.items()}
+
+
+def span_rows(spans, ops, prefix: str) -> dict:
+    """{span: [host ms, device ms, launches]} summed over the spans whose
+    name starts with ``prefix``, from ``timeline``."""
+    starts = [a for a, _ in ops]
+    out = {}
+    for a, b, n in spans:
+        if n.startswith(prefix):
+            row = out.setdefault(n, [0.0, 0.0, 0])
+            for i, v in enumerate(_row(ops, starts, a, b)):
+                row[i] += v
+    return out
+
+
+def _print_rows(title: str, rows: dict) -> None:
+    print(f"\n{title}")
+    print(f"  {'span':24s} {'host ms':>9s} {'device ms':>10s} "
+          f"{'launches':>9s}")
+    for k, v in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {k:24s} {v[0]:9.3f} {v[1]:10.3f} {v[2]:9.1f}")
 
 
 def eye_render(env, data) -> dict:
@@ -133,26 +179,21 @@ def main(B: int = 4096, task: str = "walk_on_ball") -> None:
               f"{render['launches']} kernels/copies, peak device memory "
               f"{render['peak_gb']:.2f} GB over what is held; 2 per "
               f"control step")
-    for upd in (False, True):
-        t = stage_times(m, state.data, upd)
-        total = sum(t.values())
-        print(f"\n{'update' if upd else 'fresh'} substep: "
-              f"{1e3 * total:.2f} ms (sum of synced stages)")
-        for k, v in sorted(t.items(), key=lambda kv: -kv[1]):
-            print(f"  {k:18s} {1e3 * v:9.3f} ms  {100 * v / total:5.1f} %")
-
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = env.autoreset_step(state, mid)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    tm.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state = env.autoreset_step(state, mid)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
+    counts = tm.counters()
+    tm.clear()
     rows = device_rows(prof)
     busy = sum(a.self_device_time_total for a in rows) / 1e3     # ms
     launches = sum(a.count for a in rows)
@@ -169,6 +210,18 @@ def main(B: int = 4096, task: str = "walk_on_ball") -> None:
     for a in sorted(rows, key=lambda a: -a.self_device_time_total)[:15]:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms {a.count:6d}x  "
               f"{a.key[:90]}")
+    spans, ops = timeline(prof)
+    for kind, table in substep_tables(spans, ops, m.col_refresh).items():
+        _print_rows(f"{kind} substep (the mean of the step's): host "
+                    f"{sum(v[0] for v in table.values()):.2f} ms", table)
+    _print_rows("the env's spans over the step (env.reset lies inside "
+                "env.autoreset)", span_rows(spans, ops, "env."))
+    print("\ncounters: " + ", ".join(f"{k} {v:.0f}"
+                                     for k, v in sorted(counts.items())))
+    if counts.get("solver.rows"):
+        print(f"B1 rows carrying a force: "
+              f"{100 * counts['solver.rows_used'] / counts['solver.rows']:.2f}"
+              f" %")
 
 
 if __name__ == "__main__":
