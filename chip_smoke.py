@@ -9,8 +9,11 @@ Phases (each prints its lines; any failure exits non-zero):
               process per source, all started together
   3. main     walk_on_ball at B=4096, float32: reset, one warm-up control
               step, then 10 autoreset_step calls with mid-range actions;
-              obs and reward must be finite and the solve_rows kernel
-              must have launched exactly 10 times per control step
+              obs and reward must be finite, the solve_rows kernel
+              must have launched exactly 10 times per control step and
+              the convex narrowphase kernel (ccd_narrowphase) once per ccd
+              class in each substep and in the autoreset's reset (44
+              times per control step)
   4. check    one substep of 4 envs of the main path's final state on the
               card (float32) against the same substep on the CPU
               (plain versions, float32; float64 sets how far apart two
@@ -18,7 +21,16 @@ Phases (each prints its lines; any failure exits non-zero):
   5. kernels  solve_rows against its plain version on the card, at the
               main path's shapes: (a) inputs captured from the main path's
               final state, (b) random inputs; times of both, and of (a)
-              with the solver loop switched off (where the time goes).
+              with the solver loop switched off (where the time goes);
+              (c) ccd_narrowphase against its plain version
+              (physics/ccd.py, float32 on the same card tensors) on every
+              call of one more control step from the main path's final
+              state (each class, fresh and update substeps, the reset),
+              both held to the plain version in float64 lane by lane
+              (CCD_TOL_*, CCD_TIE_*), each call timed (device ms
+              with the queue held by a spin kernel; plain ms), the first
+              fresh and update substep printed class by class; its
+              kernels-line row sums the control step's calls.
               Every solve_rows hold (here and in phases 8-13) first
               replays the plain version with the other restart decision
               in an env where its restart test was a near tie (TIE) and
@@ -237,7 +249,8 @@ Phases (each prints its lines; any failure exits non-zero):
  17. registers, shared memory, resident blocks and warps per SM, local
      (spill) bytes and apgd_iterate's active clusters of every kernel
      (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes,
-     solve_rows at the vision, rodent and humanoid shapes), also as each
+     solve_rows at the vision, rodent and humanoid shapes,
+     ccd_narrowphase's four instances), also as each
      kernel row's
      "occupancy"; the kernel table as JSON ("launches" on the main path of
      phase 3 or 6-7, "launches_train" in phase 8, solve_rows'
@@ -463,6 +476,31 @@ TIE_MIN_ENVS = 6
 # may flip, and at most CAM_SHARE may move by more than CAM_TOL_DIST.
 CAM_TOL_DIST = 1e-3
 CAM_SHARE = 1e-3
+# The convex narrowphase kernel (phase 5): each answer is checked in
+# float64 by the plain code at the answer's own direction u
+# (``ccd_misfit``): its dist against the support gap at u, u's gap against
+# the float64 run's answer, |u| against 1 (the gap misfit), and its pos
+# against the refined witnesses at u (the pos misfit), each length over
+# the lane's magnitude. The direction itself is not compared: on flat
+# contacts (a face on a face) the gap barely moves over a range of u, and
+# the kernel and the plain float32 version land up to ~1e-3 apart there
+# while their dists agree to 1e-9. On an H100 at B=4096 over walk_on_ball,
+# walk_imitation and rodent_two_touch (PERF.md section 6) the
+# largest gap misfit read 1.7e-6 for the kernel and 4.1e-7 for the plain
+# float32 version, the largest pos misfit 3.0e-5 and 6.8e-5; broken
+# answers (refinement off, one PGD iteration, the flat-axis candidates
+# dropped) put 1e5-1.5e6 pairs over these bounds. A rounding can tip one
+# of the kernel's selects (a candidate's f < bf, a Newton step's
+# acceptance, a refinement's flat test) where the plain version's did
+# not: at most max(CCD_TIE_LANES, CCD_TIE_SHARE x pairs) pairs may be
+# over. The multiplicity must equal the plain version's wherever the
+# plain float32 and float64 versions agree on it.
+CCD_TOL_GAP = 1e-5
+CCD_TOL_POS = 3e-4
+CCD_TIE_LANES = 6
+CCD_TIE_SHARE = 1e-5
+# device_ms: cycles of the spin kernel that holds the queue (~50 ms)
+SPIN_CYCLES = 100_000_000
 ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
             "dinv", "qacc_smooth", "qvel", "kcoef", "bcoef", "posr")
 UP_ARGS = ROW_ARGS[7:]
@@ -577,6 +615,169 @@ def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, flops,
           f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB), launches "
           f"{launches}", flush=True)
     return row
+
+
+class CcdCalls:
+    """Stands in for ``ops/ccd_kernel.narrowphase`` inside ``with``: keeps
+    each call's (args, kwargs) in ``calls`` and calls through. ``launches``
+    reads and writes the wrapped function's own count, which that function
+    adds to by its module name."""
+
+    def __init__(self, CK):
+        self.CK, self.fn, self.calls = CK, CK.narrowphase, []
+
+    def __enter__(self):
+        self.CK.narrowphase = self
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.CK.narrowphase = self.fn
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append((args, kwargs))
+        return self.fn(*args, **kwargs)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+
+def ccd_misfit(ccd, args64, dist64, out):
+    """Per (lane, env) misfit of a narrowphase answer ``out`` (dist, pos,
+    u, ...) to the inputs ``args64`` (float64), judged in float64 by the
+    plain code at the answer's own direction u: how far its dist is from
+    the support gap at u, how far its pos is from the refined witnesses at
+    u, how much worse u is than the float64 run's answer ``dist64`` (a
+    direction no worse counts 0), and how far |u| is from 1. Each length
+    over the lane's magnitude (its centres' distance from the origin, its
+    radii, half-axes and segment halves). Returns (gap, pos), each
+    flattened over (N, B): gap the largest of the three but pos."""
+    import torch
+    p1, R1, (e1, s1, r1, _), p2, R2, (e2, s2, r2, _) = args64
+    dist, pos, u = (x.double() for x in out[:3])
+    norm = u.norm(dim=1)
+    u = u / norm[:, None]
+    pair = ccd._Pair(p1, R1, (e1, s1), p2, R2, (e2, s2))
+    sa, sb = pair.sup(u)
+    d_at = -pair.f(u, sa, sb) - (r1 + r2)[:, 0]
+    x1, x2 = ccd._refine_witnesses(u, sa, sb, p1, R1, (e1, s1), p2, R2,
+                                   (e2, s2))
+    pos_at = 0.5 * ((x1 + r1 * u) + (x2 - r2 * u))
+    mag = (torch.maximum(p1.norm(dim=1), p2.norm(dim=1)) + e1.amax(dim=1)
+           + s1[:, 0] + r1[:, 0] + e2.amax(dim=1) + s2[:, 0] + r2[:, 0])
+    gap = torch.stack([(dist - d_at).abs() / mag,
+                       (dist64 - d_at).clamp_min(0) / mag,
+                       (norm - 1).abs()]).amax(dim=0)
+    return (gap.reshape(-1),
+            ((pos - pos_at).abs().amax(dim=1) / mag).reshape(-1))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` over ``reps`` calls back to back. A
+    spin kernel holds the queue while the host launches them, so the
+    host's pace (slower than a small kernel's run) stays out of the time;
+    fails if the host took longer than the spin."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s0, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t = time.perf_counter()
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    if not host_ms < s0.elapsed_time(e0):
+        fail(f"device_ms: the host took {host_ms:.2f} ms to launch {reps} "
+             f"calls, longer than the {s0.elapsed_time(e0):.2f} ms spin")
+    return e0.elapsed_time(e1) / reps
+
+
+def ccd_as64(args, kw):
+    """A narrowphase call's (args, kwargs) with every float tensor in
+    float64."""
+    def f64(x):
+        if isinstance(x, tuple):
+            return tuple(f64(y) for y in x)
+        return as64(x) if hasattr(x, "is_floating_point") else x
+    return [f64(x) for x in args], dict(kw, u0=as64(kw.get("u0")))
+
+
+def hold_ccd(label, calls, CK, ccd, n_classes):
+    """The narrowphase kernel on every captured call ``calls`` ([(args,
+    kwargs)]), each answer checked in float64 by the plain code
+    (``ccd_misfit``) beside the plain float32 version's on the same card
+    tensors. Fails where more than max(CCD_TIE_LANES, CCD_TIE_SHARE x
+    pairs) (lane, env) pairs misfit by over CCD_TOL_GAP or CCD_TOL_POS,
+    where the kernel's
+    multiplicity differs from one that the plain float32 and float64
+    versions agree on, or where the kernel's dist is not finite where the
+    plain version's is. Times each call (device ms; plain ms) and prints
+    the first fresh and update substep's class by class. Returns the
+    kernels line's numbers."""
+    import torch
+    n0 = CK.narrowphase.launches
+    over, nu_bad, lanes, worst = 0, 0, 0, 0.0
+    mk_all, mp_all = [[], []], [[], []]
+    k_ms = p_ms = flops = moved = 0.0
+    for i, (args, kw) in enumerate(calls):
+        got = CK.narrowphase(*args, **kw)
+        want = ccd.narrowphase(*args, **kw)
+        args64, kw64 = ccd_as64(args, kw)
+        want64 = ccd.narrowphase(*args64, **kw64)
+        if not bool(torch.isfinite(got[0])[torch.isfinite(want[0])].all()):
+            fail(f"{label} ccd call {i}: the kernel's dist is not finite "
+                 f"where the plain version's is")
+        mk = ccd_misfit(ccd, args64, want64[0], got)
+        mp = ccd_misfit(ccd, args64, want64[0], want)
+        over += int(((mk[0] > CCD_TOL_GAP) | (mk[1] > CCD_TOL_POS)).sum())
+        nu_bad += int(((got[3] != want[3]) & (want[3] == want64[3])).sum())
+        lanes += mk[0].numel()
+        worst = max(worst, (got[0] - want[0]).abs().max().item())
+        for j in (0, 1):
+            mk_all[j].append(mk[j])
+            mp_all[j].append(mp[j])
+        N, _, B_c = args[0].shape
+        ax1, ax2 = bool(args[2][3]), bool(args[5][3])
+        work = CK.narrowphase_work(N, B_c, kw["iters"], ax1, ax2)
+        ms = device_ms(lambda: CK.narrowphase(*args, **kw), 20)
+        pms = cuda_ms(lambda: ccd.narrowphase(*args, **kw), 1)
+        k_ms, p_ms = k_ms + ms, p_ms + pms
+        flops, moved = flops + work["flops"], moved + work["bytes"]
+        if i < 2 * n_classes:
+            b_ms, by = bound(work["flops"], work["bytes"])
+            print(f"  {label} ccd {'fresh' if i < n_classes else 'update'} "
+                  f"flags ({int(ax1)},{int(ax2)}) lanes {N} B={B_c} iters "
+                  f"{kw['iters']}: kernel {ms:.4f} ms, plain {pms:.3f} ms, "
+                  f"bound {b_ms:.4f} ms ({by})", flush=True)
+    torch.cuda.synchronize()
+    cap = max(CCD_TIE_LANES, math.ceil(CCD_TIE_SHARE * lanes))
+    q = [0.5, 0.99, 0.9999]
+
+    def spread(xs):
+        x = torch.cat(xs)
+        qs = x.quantile(torch.tensor(q, dtype=x.dtype, device=x.device))
+        return [float(f"{v:.3g}") for v in qs.tolist() + [x.max().item()]]
+
+    print(f"  {label} ccd: {len(calls)} calls, {lanes} (lane, env) pairs; "
+          f"misfit in float64 at quantiles {q} and max, gap: kernel "
+          f"{spread(mk_all[0])}, plain float32 {spread(mp_all[0])} (tol "
+          f"{CCD_TOL_GAP:g}); pos: kernel {spread(mk_all[1])}, plain "
+          f"float32 {spread(mp_all[1])} (tol {CCD_TOL_POS:g}); kernel pairs "
+          f"over: {over} (cap {cap}); multiplicity off where both plain "
+          f"versions agree: {nu_bad}; max |dist| kernel - plain "
+          f"{worst:.3e}", flush=True)
+    if CK.narrowphase.launches - n0 < len(calls):
+        fail(f"{label} ccd: the kernel was not launched on every call")
+    if over > cap:
+        fail(f"{label} ccd: {over} (lane, env) pairs misfit over "
+             f"tolerance > cap {cap}")
+    if nu_bad:
+        fail(f"{label} ccd: the multiplicity differs in {nu_bad} pairs")
+    return {"err": worst, "ms": k_ms, "plain_ms": p_ms, "flops": flops,
+            "bytes": moved, "over": over, "cap": cap}
 
 
 def param_vector(*modules):
@@ -816,9 +1017,11 @@ def main() -> int:
                                             vision_guided_flight,
                                             walk_imitation, walk_on_ball)
     from flybody_tpu_torch.ops import admm_kernel as AK
+    from flybody_tpu_torch.ops import ccd_kernel as CK
     from flybody_tpu_torch.ops import solver_kernels as SK
     from flybody_tpu_torch.ops import tree_ldl as TL
     from flybody_tpu_torch.physics import bridge
+    from flybody_tpu_torch.physics import ccd as CCD
     from flybody_tpu_torch.physics import constraint as C
     from flybody_tpu_torch.physics import forward as F
     from flybody_tpu_torch.physics import solver_dense as SD
@@ -845,6 +1048,7 @@ def main() -> int:
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        CK.narrowphase.launches = 0
 
     def counts() -> dict:
         return {k: w.launches for k, w in wrappers.items()}
@@ -897,6 +1101,7 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launched = counts()
+    ccd_launched = CK.narrowphase.launches
     sps = B * STEPS / dt
     print(f"main: walk_on_ball B={B} reset {reset_s:.3f} s, {STEPS} "
           f"control steps in {dt:.3f} s = {sps:.1f} env-steps/s "
@@ -906,6 +1111,14 @@ def main() -> int:
     if launched != dict({k: 0 for k in wrappers},
                         solve_rows=STEPS * env.n_substeps):
         fail("solve_rows was not launched once per substep")
+    # the convex narrowphase: once a ccd class in each substep and in the
+    # autoreset's batched reset
+    ccd_want = STEPS * len(env.model.ccd_classes) * (env.n_substeps + 1)
+    print(f"main: ccd_narrowphase launches {ccd_launched} (expected "
+          f"{ccd_want})", flush=True)
+    if ccd_launched != ccd_want:
+        fail("ccd_narrowphase was not launched once per class a substep "
+             "and reset")
     for k, v in state.obs.items():
         if not bool(torch.isfinite(v).all()):
             fail(f"obs {k} not finite")
@@ -1055,6 +1268,24 @@ def main() -> int:
                                    kwa["noslip_iterations"],
                                    kwa["power_iters"]),
                 nbytes(*args.values(), *got))
+
+    # the convex narrowphase on one more control step from the main path's
+    # final state: every class, fresh and update substeps, and the reset
+    with CcdCalls(CK) as ccd_calls:
+        env.autoreset_step(state, mid)
+    n_cls = len(m.ccd_classes)
+    if len(ccd_calls) != n_cls * (env.n_substeps + 1):
+        fail(f"ccd: {len(ccd_calls)} narrowphase calls in a control step")
+    h = hold_ccd("fly", ccd_calls, CK, CCD, n_cls)
+    rows["ccd_narrowphase"] = kernel_row(
+        "ccd_narrowphase", "ccd_narrowphase.cu",
+        "flybody_tpu_torch/physics/ccd.py::narrowphase (plain jnp in the "
+        "JAX package)", ccd_launched, h["err"], h["ms"], h["plain_ms"],
+        h["flops"], h["bytes"])
+    rows["ccd_narrowphase"].update(
+        calls_timed=len(ccd_calls), over_float64=h["over"],
+        over_cap=h["cap"])
+    del ccd_calls
 
     mark(5)
     # ---- 6. the stage split on the fly inputs ----------------------------
@@ -1311,8 +1542,8 @@ def main() -> int:
     check_rows("train", m.tree, prob_t["args"], prob_t["kw"])
     del loop, d_t, prob_t
     update_check(learner, tcfg.dmpo)
-    for k, row in rows.items():
-        row["launches_train"] = train_launched[k]
+    for k, n in train_launched.items():
+        rows[k]["launches_train"] = n
     print(f"kernel: solve_rows launches {launched['solve_rows']} on the main "
           f"path, {train_launched['solve_rows']} in training", flush=True)
 
@@ -2652,6 +2883,9 @@ def main() -> int:
                   ("upsolve_yd", "", SK.kernel_info(
         "upsolve_yd", m.nv, R, m.tree.nM, SK.pack_tables(m.tree))),
                   ("admm_iterate", "", AK.kernel_info(n_rows))]
+    occupancy += [("ccd_narrowphase", f"_{int(a1)}{int(a2)}",
+                   CK.kernel_info(a1, a2))
+                  for a1 in (False, True) for a2 in (False, True)]
     for name, at, info in occupancy:
         cpl = (f" ({info['cpl']} columns per lane)" if "cpl" in info
                else "")
@@ -2676,7 +2910,7 @@ def main() -> int:
         key = "" if label == "fly" else "_" + label.replace(" ", "_")
         rows["solve_rows"][f"replayed{key}"] = rep
     order = ("solve_rows", "apgd_iterate", "upsolve_build_yd", "upsolve_yd",
-             "admm_iterate")
+             "admm_iterate", "ccd_narrowphase")
     print(f"wall s per phase {json.dumps(phase_s)}, in all "
           f"{sum(phase_s.values()):.1f} s", flush=True)
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)

@@ -537,10 +537,11 @@ def _ccd_params(ts, ax1, ax2):
 
 def _ccd_stage(m: Model, d: Data):
     """Gated exact-convex narrowphase, per kink-structure class: the gate
-    selects each class's lane budget per env, then ccd.narrowphase runs
+    selects each class's lane budget per env, then the narrowphase
+    (ops/ccd_kernel: the kernel on the card, physics/ccd on the CPU) runs
     with the class's static axis flags. Returns per-class row tuples in
     class order, matching the (3, budget) groups efc_meta appends."""
-    from flybody_tpu_torch.physics import ccd as ccd_mod
+    from flybody_tpu_torch.ops import ccd_kernel
     tab_all = m.plan("ccd_table", _ccd_table)
     payload = _geom_payload(m, d)
     g1_all = np.asarray(m.ccd_geom1)
@@ -571,7 +572,7 @@ def _ccd_stage(m: Model, d: Data):
             old_u = rows.take(d.ccd_warm_u[off:off + N], src)
             ok = hit.any(dim=1) & torch.isfinite(old_u).all(dim=1)
             u0 = torch.where(ok[:, None, :], old_u, torch.zeros_like(old_u))
-        dist, pos, nrm, nu = ccd_mod.narrowphase(
+        dist, pos, nrm, nu = ccd_kernel.narrowphase(
             p1, R1, prm1, p2, R2, prm2, iters=m.ccd_iters, u0=u0,
             with_nu=True)
         col = lambda i: ts[:, i]
@@ -668,7 +669,7 @@ def collision_update(m: Model, d: Data) -> Data:
     the lane's own geoms; ccd lanes rerun the convex narrowphase warm-
     started from their own previous direction; k/b/R are re-evaluated from
     the stored solref/solimp at the new penetration."""
-    from flybody_tpu_torch.physics import ccd as ccd_mod
+    from flybody_tpu_torch.ops import ccd_kernel
     from flybody_tpu_torch.physics.constraint import efc_meta, kbi
     from flybody_tpu_torch.physics.io_mj import PAIR_NCON
     if m.ncon_max == 0 and m.ccd_budget == 0:
@@ -725,7 +726,7 @@ def collision_update(m: Model, d: Data) -> Data:
             prm1, prm2 = _ccd_params(ts, ax1, ax2)
             u0 = d.ccd_warm_u[off:off + N].to(d.qpos.dtype)
             # warm-started from each lane's own previous direction
-            cds, cdp, cdn, cnu = ccd_mod.narrowphase(
+            cds, cdp, cdn, cnu = ccd_kernel.narrowphase(
                 p1, R1, prm1, p2, R2, prm2,
                 iters=max(4, m.ccd_iters - 3), u0=u0, with_nu=True)
             dist_l.append(cds)

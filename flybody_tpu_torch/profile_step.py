@@ -45,6 +45,11 @@ def device_rows(prof) -> list:
             and a.key not in host]
 
 
+LAUNCH_CALLS = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+    "cuLaunchKernelEx"))
+
+
 def timeline(prof) -> tuple:
     """(spans, ops) of a stopped torch.profiler run: the program's spans
     ``[(start ns, end ns, name)]`` (``physics.*``, ``env.*``), and its
@@ -58,13 +63,21 @@ def timeline(prof) -> tuple:
     names = {e.name() for e in host}
     front = {e.correlation_id(): e.start_ns() for e in host
              if e.linked_correlation_id() == 0}
+    # a kernel launched outside any aten op (a hand kernel through ctypes)
+    # links to no op: it is placed at its runtime launch call instead
+    launch = {e.correlation_id(): e.start_ns() for e in host
+              if e.name() in LAUNCH_CALLS}
     spans = sorted((e.start_ns(), e.end_ns(), e.name()) for e in host
                    if e.name().startswith(("physics.", "env.")))
-    ops = sorted((front[e.linked_correlation_id()], e.duration_ns())
-                 for e in events if e.device_type() != cpu
-                 and e.name() not in names
-                 and e.linked_correlation_id() in front)
-    return spans, ops
+    ops = []
+    for e in events:
+        if e.device_type() == cpu or e.name() in names:
+            continue
+        t = front.get(e.linked_correlation_id(),
+                      launch.get(e.correlation_id()))
+        if t is not None:
+            ops.append((t, e.duration_ns()))
+    return spans, sorted(ops)
 
 
 def _row(ops, starts, a: int, b: int) -> list:

@@ -155,12 +155,14 @@ def test_spanned_keeps_the_function():
 
 def test_stage_and_env_spans(fly, traced):
     """Each stage span runs once a substep; the reset adds one of each
-    position and velocity stage; the env's spans nest them."""
+    position and velocity stage; the env's spans nest them; each
+    collision holds one ``physics.ccd`` span per ccd class."""
     env = fly[0]
     spans = traced["spans"]
     n = collections.Counter(n for _, _, n in spans)
     want = {f"physics.{s}": env.n_substeps + 1 for s in POSITION_VELOCITY}
     want.update({f"physics.{s}": env.n_substeps for s in LATER})
+    want["physics.ccd"] = (env.n_substeps + 1) * len(env.model.ccd_classes)
     want.update({"env.step": 1, "env.autoreset": 1, "env.reset": 1,
                  "env.task": 2})
     assert dict(n) == want
@@ -170,6 +172,8 @@ def test_stage_and_env_spans(fly, traced):
         if e[2].startswith("physics."):
             assert inside in ({"env.step"},
                               {"env.reset", "env.autoreset"}), e
+            assert (e[2] != "physics.ccd"
+                    or _within(e, "physics.collision", spans)), e
         elif e[2] == "env.task":
             assert inside == {"env.step"}
         elif e[2] == "env.reset":
@@ -213,7 +217,7 @@ def test_agent_spans(training):
 
 def test_no_span_is_a_benchmark_span(traced, training):
     names = {n for _, _, n in traced["spans"] + training[1]}
-    assert set(AGENT_SPANS) <= names and len(names) == 28
+    assert set(AGENT_SPANS) <= names and len(names) == 29
     assert not names & set(btrace.SPANS)
 
 
@@ -225,8 +229,11 @@ def test_counters_equal_hand_counts(fly, traced):
     assert R == 176 and all(f.shape == (R, B) for f in sol_f)
     used = sum(int(torch.count_nonzero(f)) for f in sol_f)
     assert 0 < used < env.n_substeps * R * B
+    lanes = env.model.ccd_budget * B
+    assert lanes == 96 * B
     assert c == {"solver.rows": float(env.n_substeps * R * B),
                  "solver.rows_used": float(used),
+                 "ccd.lanes": float((env.n_substeps + 1) * lanes),
                  "env.reset_built": float(B),
                  "env.done": float(traced["out"].done.sum())}
 
@@ -240,7 +247,8 @@ def test_counters_with_a_forced_done(fly):
         _profiled(lambda: env.apply_autoreset(forced))
     finally:
         state.rng.set_state(rng)
-    assert tm.counters() == {"env.reset_built": float(B), "env.done": 1.0}
+    assert tm.counters() == {"env.reset_built": float(B), "env.done": 1.0,
+                             "ccd.lanes": float(env.model.ccd_budget * B)}
     tm.clear()
 
 
@@ -277,6 +285,29 @@ def test_launch_readers_on_a_hand_built_trace():
         assert r.read({"driver": d}) is None
 
 
+def test_ccd_launch_reader_on_a_hand_built_trace():
+    """ccd_launches_per_step.sim counts the launch calls that start inside
+    a ``physics.ccd`` range (nested in ``physics.collision``), and reads
+    nothing where the span is absent or the cell trains."""
+    ops = [(0, 1000, "physics.collision"), (10, 11, "cudaLaunchKernel"),
+           (100, 200, "physics.ccd"), (120, 121, "cudaLaunchKernel"),
+           (150, 151, "aten::empty"), (199, 200, "cudaMemsetAsync"),
+           (200, 201, "cudaLaunchKernel"), (300, 400, "physics.ccd"),
+           (350, 351, "cuLaunchKernel"), (600, 601, "cudaMemcpyAsync"),
+           (2000, 2100, "physics.ccd"), (2050, 2051, "cudaLaunchKernelExC"),
+           (3000, 3001, "cudaLaunchKernel")]
+    t = _trace(ops)
+    ccd = _reader("ccd_launches_per_step.sim")
+    col = _reader("collision_launches_per_step.sim")
+    assert ccd.read({"driver": "sim", "trace": t}) == 4.0
+    assert col.read({"driver": "sim", "trace": t}) == 6.0
+    assert ccd.read({"driver": "train", "trace": t}) is None
+    assert ccd.read({"driver": "sim"}) is None
+    bare = _trace([o for o in ops if o[2] != "physics.ccd"])
+    assert ccd.read({"driver": "sim", "trace": bare}) is None
+    assert col.read({"driver": "sim", "trace": bare}) == 6.0
+
+
 def test_counter_readers():
     used, reset = (_reader("solve_rows_used_pct.sim"),
                    _reader("reset_useful_pct.sim"))
@@ -309,14 +340,15 @@ def test_counter_readers():
 
 
 def test_profile_step_tables(fly, traced):
-    """profile_step's tables: the 15 stages in each kind of substep, the
-    env's spans; no device time on the CPU."""
+    """profile_step's tables: the 15 stages and the ccd span inside
+    collision in each kind of substep, the env's spans; no device time on
+    the CPU."""
     env = fly[0]
     spans, ops = PS.timeline(traced["prof"])
     assert ops == [] and spans == [s for s in traced["spans"]
                                    if s[2].startswith(("physics.", "env."))]
     tables = PS.substep_tables(spans, ops, env.model.col_refresh)
-    stages = {f"physics.{s}" for s in POSITION_VELOCITY + LATER}
+    stages = {f"physics.{s}" for s in POSITION_VELOCITY + LATER + ("ccd",)}
     assert set(tables) == {"fresh", "update"}
     for t in tables.values():
         assert set(t) == stages
@@ -357,5 +389,5 @@ def test_launch_calls_match_the_device_trace(card):
 def test_no_device_interval_bears_a_span_name(card):
     spans = {n for _, _, n in card.ops if n.split(".")[0] in
              ("physics", "env")}
-    assert len(spans) == 19
+    assert len(spans) == 20
     assert not {n for _, _, n in card.device} & spans
