@@ -4,9 +4,12 @@ The winged fly of flight_imitation, driven by the wing-beat pattern
 generator (WBPG), flies over a sine-trench or sine-bumps heightfield
 (reference vnl_ray/tasks/vision_flight.py). Its two 32x32 eyes are
 rendered on the device every control step by the raycaster of
-``ops/raycast.py``. ``task_input`` is the env's (target height, target
-speed); the reward is the product of height-over-terrain, x-speed, speed,
-side-speed, body-axis and (over the trench) trench-centre tolerance
+``ops/raycast.py``. Each eye casts against the largest primitive geoms of
+the model less those that contain it (geoms of the head, the body the eye
+rides on), so that it sees the terrain, the sky and the fly's other geoms,
+not the inside of the head. ``task_input`` is the env's (target height,
+target speed); the reward is the product of height-over-terrain, x-speed,
+speed, side-speed, body-axis and (over the trench) trench-centre tolerance
 factors (reference :155-214). Any active contact with the terrain (the
 world body) is fatal (reference :216-228), as is flying too low, an
 exploding qacc or a NaN state.
@@ -30,6 +33,7 @@ import torch
 
 from flybody_tpu_torch.envs.core import FlyEnv, Task
 from flybody_tpu_torch.envs.walker import FlyWalker
+from flybody_tpu_torch.math.quaternions import quat_to_mat
 from flybody_tpu_torch.ops import raycast
 from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.types import Data, Model
@@ -38,6 +42,7 @@ from flybody_tpu_torch.tasks import constants as C
 from flybody_tpu_torch.tasks.pattern_generators import (
     WBPGState, WingBeatPatternGenerator)
 from flybody_tpu_torch.utils import rewards as rwu
+from flybody_tpu_torch.utils import telemetry as tm
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "models",
                        "assets")
@@ -64,6 +69,8 @@ _WING_JOINTS = [f"wing_{axis}_{side}" for side in ("left", "right")
 # primitive geoms they see, the largest of the model
 EYE_FOVY = 150.0
 EYE_GEOMS = 16
+# samples of the terrain march a ray (ops/raycast.terrain_hit's default)
+MARCH_SAMPLES = 48
 
 
 @dataclasses.dataclass
@@ -139,6 +146,39 @@ def load_model(bumps_or_trench: str = "trench") -> dict:
         return {k: z[k] for k in z.files}
 
 
+def contains(geom_type: int, size, p) -> bool:
+    """True where the point ``p`` (3,), in a geom's frame, lies inside the
+    geom as the raycaster casts it (a cylinder as a capsule)."""
+    p, size = np.asarray(p, np.float64), np.asarray(size, np.float64)
+    if geom_type == T.GEOM_SPHERE:
+        return bool(p @ p < size[0] ** 2)
+    if geom_type == T.GEOM_ELLIPSOID:
+        return bool(np.sum((p / size) ** 2) < 1.0)
+    if geom_type in (T.GEOM_CAPSULE, T.GEOM_CYLINDER):
+        axis = np.clip(p[2], -size[1], size[1])
+        return bool(p[0] ** 2 + p[1] ** 2 + (p[2] - axis) ** 2
+                    < size[0] ** 2)
+    if geom_type == T.GEOM_BOX:
+        return bool(np.all(np.abs(p) < size))
+    return False
+
+
+def eye_geoms(model: Model, geom_ids, body: int, pos) -> np.ndarray:
+    """``geom_ids`` less the geoms that contain the point ``pos`` (3,) of
+    body ``body``'s frame. Only the body's own geoms are fixed relative to
+    the point, so only they are tested, once."""
+    gb = np.asarray(model.geom_bodyid)
+    gt = np.asarray(model.geom_type)
+    gpos = model.geom_pos.detach().cpu().double().numpy()
+    gmat = quat_to_mat(model.geom_quat.detach().cpu().double()).numpy()
+    gsize = model.geom_size.detach().cpu().double().numpy()
+    pos = np.asarray(pos, np.float64)
+    return np.asarray([
+        g for g in geom_ids
+        if not (gb[g] == body and contains(
+            gt[g], gsize[g], gmat[g].T @ (pos - gpos[g])))], np.int64)
+
+
 def _fma32(a, b, c) -> np.float32:
     """float32 a * b + c with one rounding (the product is exact in
     float64)."""
@@ -197,10 +237,11 @@ class VisionFlightWBPG(Task):
                                - 1.0)
         # each eye's body, offset and float32 rotation in it
         bodyid, pos, quat = cam_pose
-        self.eyes = []
+        self.eyes, eye_pos = [], []
         for key, cam in (("left_eye", "eye_left"), ("right_eye", "eye_right")):
             c = names["camera"].get(cam)
             if c is not None:
+                eye_pos.append(pos[c])
                 self.eyes.append((
                     key, int(bodyid[c]),
                     torch.as_tensor(np.asarray(pos[c], np.float32),
@@ -214,17 +255,24 @@ class VisionFlightWBPG(Task):
         # float32 rays, as the JAX package's camera_rays default
         self.rays = raycast.camera_rays(EYE_FOVY, eye_size, eye_size,
                                         device=dev).to(dtype)
-        # the primitive geoms the eyes see (the fly's own body and any
-        # obstacle geom): the largest EYE_GEOMS bound the cost per pixel
+        # the primitive geoms in view (the fly's own body and any obstacle
+        # geom): the largest EYE_GEOMS bound the cost per pixel. Each eye
+        # casts against them less the geoms that contain it, which it
+        # would see from the inside at every pixel
         gt = np.asarray(model.geom_type)
         gs = model.geom_size.detach().cpu().numpy()
         prim = np.nonzero((gt != T.GEOM_PLANE) & (gt != T.GEOM_HFIELD))[0]
         if len(prim):
             order = np.argsort(-gs[prim].max(axis=-1))
             prim = prim[order[:EYE_GEOMS]]
-        self.scene_cast, has_scene = raycast.make_scene_raycaster(model, prim)
-        if not has_scene:
-            self.scene_cast = None
+        self.scene_geoms = prim
+        self.eye_geoms = [eye_geoms(model, prim, body, p)
+                          for (_, body, _, _), p in zip(self.eyes, eye_pos)]
+        self.eye_casts = []
+        for ids in self.eye_geoms:
+            cast, has_scene = raycast.make_scene_raycaster(model, ids)
+            self.eye_casts.append(cast if has_scene else None)
+        self.march_samples = MARCH_SAMPLES
         # the hover orientation: the body pitched at BODY_PITCH_ANGLE
         self.init_quat = torch.as_tensor(np.array(
             [np.cos(-theta / 2), 0.0, np.sin(-theta / 2), 0.0], np.float32),
@@ -303,16 +351,24 @@ class VisionFlightWBPG(Task):
     def render_eyes(self, model: Model, data: Data,
                     distance: bool = False) -> dict:
         """{eye key: (B, H, W) intensity} of both eyes (with ``distance``,
-        each pixel's nearest hit distance)."""
+        each pixel's nearest hit distance), in the span ``render.eyes``,
+        timed on the device; its counters: the rays, the march's samples
+        a ray and the primitives cast, summed over the eyes."""
         gx = data.geom_xpos.permute(2, 0, 1)
         gm = data.geom_xmat.permute(3, 0, 1, 2)
         out = {}
-        for key, body, pos, mat in self.eyes:
-            cam_pos, cam_mat = self.camera_pose(data, body, pos, mat)
-            out[key] = raycast.render_eye(
-                cam_pos, cam_mat, self.rays, self.height_fn,
-                scene_cast=self.scene_cast, geom_xpos=gx, geom_xmat=gm,
-                distance=distance)
+        with tm.span("render.eyes", device=gx.device):
+            for (key, body, pos, mat), cast in zip(self.eyes,
+                                                   self.eye_casts):
+                cam_pos, cam_mat = self.camera_pose(data, body, pos, mat)
+                out[key] = raycast.render_eye(
+                    cam_pos, cam_mat, self.rays, self.height_fn,
+                    n_steps=self.march_samples, scene_cast=cast,
+                    geom_xpos=gx, geom_xmat=gm, distance=distance)
+        tm.count("render.rays", gx.shape[0] * self.rays.shape[0]
+                 * self.rays.shape[1] * len(self.eyes))
+        tm.count("render.march_samples", self.march_samples)
+        tm.count("render.primitives", sum(len(g) for g in self.eye_geoms))
         return out
 
     def observations(self, model: Model, data: Data, ts: VisionFlightState,

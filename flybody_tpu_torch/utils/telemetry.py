@@ -7,7 +7,8 @@ nothing else turns them on.
         d = col.collision(m, d)
     tm.count("solver.rows", R * B)          # a host number, summed at once
     tm.count("solver.rows_used", d.sol_f)   # a tensor, kept by reference
-    ...
+    with tm.span("render.eyes", device=dev):   # and its device time
+        ...
     tm.counters()   # {name: float}, after the profiler stopped
     tm.clear()
 
@@ -24,6 +25,13 @@ and counts its non-zero elements when ``counters()`` reads the registry,
 so counting launches nothing on the device: pass a tensor that the
 program does not write again in place. The registry holds what every
 profiled stretch counted until ``clear()``.
+
+A span given a CUDA ``device`` also records a pair of CUDA timing events
+at its two ends, on that device's current stream, kept in the registry;
+``counters()`` reports the summed intervals as ``<name>.device_ms``. An
+interval runs from the end of the device work queued before the span to
+the end of the span's own, so it is the span's device time where the
+span's kernels are long beside its launches.
 """
 
 from __future__ import annotations
@@ -38,14 +46,32 @@ import torch.autograd.profiler as _profiler
 _OFF = contextlib.nullcontext()
 _host = collections.defaultdict(float)
 _held = collections.defaultdict(list)
+_events = collections.defaultdict(list)
 
 
-def span(name: str):
+def span(name: str, device=None):
     """A ``record_function`` range named ``name`` while a profiler
-    records, else the shared no-op context."""
-    if _profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return _OFF
+    records, else the shared no-op context; with a CUDA ``device``, timed
+    on it as well."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    if device is not None and torch.device(device).type == "cuda":
+        return _timed(name, torch.device(device))
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def _timed(name: str, device: torch.device):
+    """``record_function(name)`` between two CUDA timing events on
+    ``device``'s current stream, kept under ``name``."""
+    stream = torch.cuda.current_stream(device)
+    ends = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    with torch.profiler.record_function(name):
+        ends[0].record(stream)
+        yield
+        ends[1].record(stream)
+    _events[name].append(ends)
 
 
 def spanned(name: str):
@@ -72,9 +98,15 @@ def count(name: str, value) -> None:
 
 
 def counters() -> dict:
-    """{name: total} of every counter since the last ``clear()``; waits
-    once for the device, where tensors were counted."""
+    """{name: total} of every counter since the last ``clear()``, and
+    ``<span>.device_ms`` of every timed span; waits for the device where
+    tensors were counted or spans timed."""
     out = dict(_host)
+    for n, pairs in _events.items():
+        out[n + ".device_ms"] = 0.0
+        for a, b in pairs:
+            b.synchronize()
+            out[n + ".device_ms"] += a.elapsed_time(b)
     held = [(n, t) for n, ts in _held.items() for t in ts]
     if held:
         dev = held[0][1].device
@@ -89,3 +121,4 @@ def clear() -> None:
     """Empty the registry."""
     _host.clear()
     _held.clear()
+    _events.clear()

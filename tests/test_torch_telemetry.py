@@ -1,8 +1,9 @@
 """The port's spans and counters (``utils/telemetry.py``) and the
 benchmark's readers of them, on the CPU: the off state, the stage and env
 spans of one traced fly step, the agents' spans of one training
-iteration, the counters against hand counts, the readers on hand-built
-traces, and ``profile_step``'s tables. The tests marked ``cuda`` trace one
+iteration, the counters against hand counts, the eye render's span and
+counters in a traced vision step, the readers on hand-built traces, and
+``profile_step``'s tables. The tests marked ``cuda`` trace one
 fly step on the card and skip without one:
 
     python -m pytest -p no:cacheprovider tests/test_torch_telemetry.py -m cuda
@@ -20,6 +21,7 @@ from flybody_tpu_torch import profile_step as PS
 from flybody_tpu_torch.agents.dmpo import DMPOConfig
 from flybody_tpu_torch.agents.train import DMPOTrainer, TrainerConfig
 from flybody_tpu_torch.physics import forward as F
+from flybody_tpu_torch.tasks import vision_flight as VF
 from flybody_tpu_torch.tasks import walk_imitation as WI
 from flybody_tpu_torch.utils import telemetry as tm
 
@@ -252,6 +254,50 @@ def test_counters_with_a_forced_done(fly):
     tm.clear()
 
 
+def test_render_span_and_counters():
+    """A traced vision_guided_flight step renders both eyes twice (the
+    step's observations and the auto-reset's fresh batch), each render in
+    one ``render.eyes`` span with its counters: the rays, the march's 48
+    samples and the 14 primitives each eye casts; no device time on the
+    CPU. Untraced, nothing is counted."""
+    env = VF.make_vision_flight("cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    lo, hi = env.action_spec()
+    action = torch.as_tensor(lo + 0.3 * (hi - lo), dtype=torch.float32)
+    action = action[None].expand(B, -1)
+    state = env.reset(B, gen)
+    tm.clear()
+    _, prof = _profiled(lambda: env.autoreset_step(state, action))
+    c = tm.counters()
+    tm.clear()
+    spans = sorted((e.start_ns(), e.end_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith(("render.", "env.")))
+    renders = [e for e in spans if e[2] == "render.eyes"]
+    assert len(renders) == 2
+    assert [_within(e, "env.task", spans) for e in renders] == [True, False]
+    assert _within(renders[1], "env.reset", spans)
+    assert [len(g) for g in env.task.eye_geoms] == [14, 14]
+    assert {k: v for k, v in c.items() if k.startswith("render.")} == {
+        "render.rays": 2.0 * B * 32 * 32 * 2,
+        "render.march_samples": 2.0 * 48,
+        "render.primitives": 2.0 * 28}
+    env.autoreset_step(state, action)
+    assert tm.counters() == {}
+
+
+def test_timed_span_off_the_card():
+    """A span given a device is the shared no-op with no profiler, and a
+    plain range without CUDA; only a CUDA device keeps timing events."""
+    assert tm.span("render.eyes", device="cpu") is tm.span("env.step")
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = tm.span("render.eyes", device="cpu")
+        with on:
+            pass
+    assert isinstance(on, torch.profiler.record_function)
+    assert tm.counters() == {}
+
+
 def _trace(ops):
     return btrace.Trace([], [], 1.0, sorted(ops))
 
@@ -306,6 +352,56 @@ def test_ccd_launch_reader_on_a_hand_built_trace():
     bare = _trace([o for o in ops if o[2] != "physics.ccd"])
     assert ccd.read({"driver": "sim", "trace": bare}) is None
     assert col.read({"driver": "sim", "trace": bare}) == 6.0
+
+
+class _Event:
+    """A stand-in for a CUDA timing event pair's start: ``elapsed_time``
+    in ms to any end."""
+
+    def __init__(self, ms=0.0):
+        self.ms = ms
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return end.ms - self.ms
+
+
+def test_render_readers():
+    """render_launches_per_step.sim counts the launch calls that start in
+    a ``render.eyes`` range; render_roofline_pct.sim is the least time of
+    the counted render over its timed device time; each reads nothing
+    where the span or the counters are absent or the cell trains."""
+    from benchmark import render_work, work
+    launches = _reader("render_launches_per_step.sim")
+    roof = _reader("render_roofline_pct.sim")
+    ops = [(0, 100, "env.task"), (10, 50, "render.eyes"),
+           (11, 12, "cudaLaunchKernel"), (20, 21, "cudaEventRecord"),
+           (49, 50, "cudaMemsetAsync"), (60, 61, "cudaLaunchKernel"),
+           (200, 300, "render.eyes"), (250, 251, "cuLaunchKernel")]
+    t = _trace(ops)
+    eyes = {"height": 4, "width": 4}
+    ctx = {"driver": "sim", "trace": t, "B": 3, "config": {"eyes": eyes}}
+    assert launches.read(ctx) == 3.0
+    assert launches.read({"driver": "sim", "trace": _trace(ops[:1])}) is None
+    assert launches.read({"driver": "train", "trace": t}) is None
+    tm.clear()
+    assert roof.read(ctx) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        tm.count("render.rays", 3 * 16 * 2)
+        tm.count("render.primitives", 5 + 6)
+    assert roof.read(ctx) is None               # no device time: no share
+    tm._events["render.eyes"].append((_Event(1.0), _Event(3.5)))
+    assert tm.counters()["render.eyes.device_ms"] == 2.5
+    flops = render_work.render_flops(96, 3 * 16 * 11)
+    assert flops == 96 * render_work.SAMPLE_FLOPS + 528 * 24
+    want = 100.0 * work.bound_s(flops, 4.0 * 96) / 2.5e-3
+    assert roof.read(ctx) == pytest.approx(want, rel=1e-12)
+    assert roof.read({**ctx, "config": {}}) is None
+    assert roof.read({**ctx, "driver": "train"}) is None
+    tm.clear()
+    assert tm.counters() == {}
 
 
 def test_counter_readers():
@@ -391,3 +487,23 @@ def test_no_device_interval_bears_a_span_name(card):
              ("physics", "env")}
     assert len(spans) == 20
     assert not {n for _, _, n in card.device} & spans
+
+
+@pytest.mark.cuda
+def test_timed_span_on_the_card():
+    """A span given the card, under a profiler, keeps its CUDA events; the
+    counters read their interval, which holds the span's kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    x = torch.ones(1 << 24, device="cuda")
+    tm.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with tm.span("render.eyes", device=x.device):
+            for _ in range(50):
+                x = x * 1.0001
+    c = tm.counters()
+    tm.clear()
+    assert set(c) == {"render.eyes.device_ms"}
+    # 50 passes reading and writing 67 MB: 6.7 GB, 2.0 ms at the card's
+    # peak bandwidth, so more in practice
+    assert c["render.eyes.device_ms"] > 1.5

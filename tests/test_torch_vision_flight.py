@@ -4,7 +4,13 @@ cameras, the four heightfield pair makers, the eye raycaster piece by
 piece, reset from JAX's draws, one autoreset_step, reward and termination
 on both terrains and in terrain contact, the vision networks with carried
 flax weights and two learner updates with them, the CLI with
-``--network vision``, and remove_vision."""
+``--network vision``, and remove_vision.
+
+The port's eyes depart from the JAX package's on purpose: each casts
+against the scene's primitives less those that contain it (the head's),
+where the JAX package's eyes see the inside of the head at every pixel.
+So the eyes are compared with the JAX raycaster run at the JAX state on
+the port's geom set of each eye; every other field with the JAX task."""
 
 import dataclasses
 import json
@@ -92,6 +98,35 @@ def _jax_draws(jstate, keys):
     return dict(target_height=_t(ts.target_height),
                 target_speed=_t(ts.target_speed), x0=_t(q[0]), y0=_t(q[1]),
                 initial_phase=_t(phase))
+
+
+def _jax_eyes(envs, jdata):
+    """{eye key: (B, H, W)} of the JAX package's raycaster at the JAX
+    state ``jdata``, each eye cast against the port's geoms of that eye
+    (``eye_geoms``) and posed in its body as the JAX task's compiled step
+    poses it (the rotation by a jitted quat_to_mat, whose float32 products
+    XLA contracts into fused multiply-adds)."""
+    jt, jm = envs["jenv"].task, envs["jenv"].model
+    pt = envs["penv"].task
+    jh = jt._height_fn(jm)
+    quat_to_mat = jax.jit(JMQ.quat_to_mat)
+    eyes = []
+    for (key, _, _, _), cam, ids in zip(pt.eyes, jt.eye_ids, pt.eye_geoms):
+        body, pos, quat = jt.walker.model.names["cam_pose"][cam]
+        eyes.append((key, body, jnp.asarray(pos),
+                     quat_to_mat(jnp.asarray(quat)),
+                     JRC.make_scene_raycaster(jm, ids)[0]))
+
+    def one(d):
+        out = {}
+        for key, body, pos, rot, cast in eyes:
+            cam_pos = d.xpos[body] + d.xmat[body] @ pos
+            cam_mat = d.xmat[body] @ rot
+            out[key] = JRC.render_eye(
+                cam_pos, cam_mat, jt.rays, jh, scene_cast=cast,
+                geom_xpos=d.geom_xpos, geom_xmat=d.geom_xmat)
+        return out
+    return jax.jit(jax.vmap(one, in_axes=-1))(jdata)
 
 
 def _task_state(jts):
@@ -375,13 +410,14 @@ def test_render_eye_equal_to_jax(envs):
     cam = root + rng.uniform(-0.6, 0.6, (3, 3)) + np.array([0, 0, 0.2])
     cmat = _rot(rng, 3)
     jh = jt._height_fn(jm)
+    scene_cast = RC.make_scene_raycaster(pm, pt.scene_geoms)[0]
     jrender = jax.jit(jax.vmap(lambda c, m, gp, gm: JRC.render_eye(
         c, m, jt.rays.astype(jnp.float64), jh, scene_cast=jt.scene_cast,
         geom_xpos=gp, geom_xmat=gm)))
     want = np.asarray(jrender(*(jnp.asarray(a)
                                 for a in (cam, cmat, gpos, gmat))))
     got = RC.render_eye(_t(cam), _t(cmat), pt.rays, pt.height_fn,
-                        scene_cast=pt.scene_cast, geom_xpos=_t(gpos),
+                        scene_cast=scene_cast, geom_xpos=_t(gpos),
                         geom_xmat=_t(gmat), chunk=2)
     # pixels whose march passes within 1e-9 of the surface
     d_world = torch.einsum("bij,hwj->bhwi", _t(cmat), pt.rays)
@@ -390,24 +426,63 @@ def test_render_eye_equal_to_jax(envs):
     gap = (pts[..., 2] - pt.height_fn(pts[..., 0], pts[..., 1])).abs()
     assert int((gap.amin(dim=-1) < 1e-9).sum()) == 0
     # every kind of pixel: sky, terrain and the fly's geoms
-    t_prim = pt.scene_cast(_t(cam), d_world, _t(gpos), _t(gmat))
+    t_prim = scene_cast(_t(cam), d_world, _t(gpos), _t(gmat))
     t_ter = RC.terrain_hit(_t(cam), d_world, pt.height_fn)
     assert bool((t_prim < 10).any()) and bool((t_ter < t_prim).any())
     assert bool(((t_ter > 10) & (t_prim > 10)).any())
     close("eye", got, want, TOL_EYE)
 
 
+def test_eyes_see_out_of_the_head(envs):
+    """At reset (64 envs drawn from a seed) each eye casts against the
+    scene less exactly the geoms that contain it in every env (the head's
+    two ellipsoids), so no pixel's nearest hit is such a geom; the terrain
+    is the nearest hit of at least 15 % of each eye's pixels in every env
+    and of 30-50 % in the median env, and terrain and sky together of
+    most of them."""
+    penv = envs["penv"]
+    pt, pm = penv.task, penv.model
+    st = penv.reset(64, torch.Generator().manual_seed(0))
+    d = st.data
+    gx = d.geom_xpos.permute(2, 0, 1)
+    gm = d.geom_xmat.permute(3, 0, 1, 2)
+    gt = np.asarray(pm.geom_type)
+    gs = pm.geom_size.numpy()
+    hits = pt.render_eyes(pm, d, distance=True)
+    for (key, body, pos, mat), ids in zip(pt.eyes, pt.eye_geoms):
+        cam_pos, cam_mat = pt.camera_pose(d, body, pos, mat)
+        inside = {int(g) for g in pt.scene_geoms for b in range(64)
+                  if VF.contains(gt[g], gs[g], _np(
+                      gm[b, g].T @ (cam_pos[b] - gx[b, g])))}
+        assert len(inside) == 2
+        assert {int(gt[g]) for g in inside} == {T.GEOM_ELLIPSOID}
+        assert set(pt.scene_geoms.tolist()) - set(ids.tolist()) == inside
+        d_world = torch.einsum("bij,hwj->bhwi", cam_mat, pt.rays)
+        t_ter = RC.terrain_hit(cam_pos, d_world, pt.height_fn)
+        t_cast = RC.make_scene_raycaster(pm, ids)[0](cam_pos, d_world, gx,
+                                                     gm)
+        assert torch.equal(hits[key], torch.minimum(t_ter, t_cast))
+        terrain = ((t_ter < t_cast) & (t_ter < 10.0)).flatten(1).double()
+        sky = ((t_ter >= 10.0) & (t_cast >= 10.0)).flatten(1).double()
+        share = terrain.mean(dim=1)
+        assert float(share.min()) >= 0.15, key
+        assert 0.30 <= float(share.median()) <= 0.50, key
+        assert float((share + sky.mean(dim=1)).median()) > 0.9, key
+
+
 # ---- reset, one control step ----------------------------------------------
 
 
 def test_reset_with_jax_draws(envs):
-    """reset from the JAX package's five draws gives its state, obs (both
-    eyes included) and task state."""
+    """reset from the JAX package's five draws gives its state, obs and
+    task state; both eyes as the JAX raycaster renders them at its state
+    on the port's geoms of each eye."""
     penv, jst = envs["penv"], envs["jstate"]
     pst = penv.reset(B, **envs["draws"])
     assert set(pst.obs) == set(jst.obs)
+    want = {**jst.obs, **_jax_eyes(envs, jst.data)}
     for k in jst.obs:
-        close("obs." + k, pst.obs[k], jst.obs[k], TOL_RESET, scale=1.0)
+        close("obs." + k, pst.obs[k], want[k], TOL_RESET, scale=1.0)
     for f in ("qpos", "qvel", "xpos", "xquat", "qM", "geom_xpos",
               "qfrc_fluid"):
         close(f, getattr(pst.data, f), getattr(jst.data, f), TOL_RESET,
@@ -447,8 +522,9 @@ def test_autoreset_step(envs):
     """One control step from the JAX reset state (no episode ends, so the
     auto-reset draw does not enter): obs, reward, done, discount and the
     state within TOL_STEP of scale, the WBPG state exactly, selections as
-    sets. The heightfield pairs run on both the fresh and the update
-    collision paths."""
+    sets; both eyes against the JAX raycaster at the JAX step's state on
+    the port's geoms of each eye. The heightfield pairs run on both the
+    fresh and the update collision paths."""
     penv, jst, jnext = envs["penv"], envs["jstate"], envs["jnext"]
     assert not bool(np.asarray(jnext.done).any())
     pst = penv.reset(B, **envs["draws"])
@@ -456,8 +532,9 @@ def test_autoreset_step(envs):
                       task_state=_task_state(jst.task_state))
     nxt = penv.autoreset_step(pst, torch.as_tensor(envs["action"]))
     assert set(nxt.obs) == set(jnext.obs)
+    want = {**jnext.obs, **_jax_eyes(envs, jnext.data)}
     for k in jnext.obs:
-        close("obs." + k, nxt.obs[k], jnext.obs[k], TOL_STEP, scale=1.0)
+        close("obs." + k, nxt.obs[k], want[k], TOL_STEP, scale=1.0)
     for f in ("reward", "discount", "step_idx"):
         close(f, getattr(nxt, f), getattr(jnext, f), TOL_STEP, scale=1.0)
     np.testing.assert_array_equal(nxt.done.numpy(), np.asarray(jnext.done))
