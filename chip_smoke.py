@@ -13,7 +13,8 @@ Phases (each prints its lines; any failure exits non-zero):
               must have launched exactly 10 times per control step and
               the convex narrowphase kernel (ccd_narrowphase) once per ccd
               class in each substep and in the autoreset's reset (44
-              times per control step)
+              times per control step), and the forward kinematics kernel
+              once a substep and in that reset (11 times)
   4. check    one substep of 4 envs of the main path's final state on the
               card (float32) against the same substep on the CPU
               (plain versions, float32; float64 sets how far apart two
@@ -84,7 +85,14 @@ Phases (each prints its lines; any failure exits non-zero):
               inputs over walk_imitation's tree at 176 rows; upsolve_yd
               against its plain version on J^T of the final state's rows,
               upsolve_build_yd and apgd_iterate on the final state's rows
-              as in phase 6, each timed
+              as in phase 6, each timed; the forward kinematics kernel
+              launched exactly 11 times per control step and held on the
+              final state's qpos against its plain version (float32 on
+              the same card tensors), both against the plain version in
+              float64 output by output (KIN_*), the kernel in float64
+              too, and timed (device ms with the queue held by a spin
+              kernel; plain ms; its byte bound): the kernels line's
+              "kinematics" row
  10. flight   flight_imitation (the winged fly in air, the wing fluid, the
               wing-beat pattern generator; solve_rows at 64 rows over 42
               dofs, the kernel's narrow instance) at B=4096, float32: reset
@@ -158,7 +166,10 @@ Phases (each prints its lines; any failure exits non-zero):
               rodent_two_touch at B=4096, float32, as phase 9 (reset from
               a seeded CUDA generator, one warm-up control step, 5 timed
               autoreset_step calls: exactly 20 solve_rows launches per
-              control step and no other kernel, obs and reward finite);
+              control step and no other kernel, obs and reward finite;
+              the kinematics kernel exactly 21 launches per control step
+              and held on the final state as in phase 9, the "*_rodent"
+              keys of its row);
               (b) rodent_run_gaps, rodent_escape_bowl and
               rodent_maze_forage the same way for 2 control steps each,
               heightfield contacts selected on gaps or bowl, and one
@@ -252,7 +263,8 @@ Phases (each prints its lines; any failure exits non-zero):
      (spill) bytes and apgd_iterate's active clusters of every kernel
      (solve_rows, upsolve_build_yd and apgd_iterate at all three shapes,
      solve_rows at the vision, rodent and humanoid shapes,
-     ccd_narrowphase's four instances), also as each
+     ccd_narrowphase's four instances, the kinematics kernel in float32
+     and float64), also as each
      kernel row's
      "occupancy"; the kernel table as JSON ("launches" on the main path of
      phase 3 or 6-7, "launches_train" in phase 8, solve_rows'
@@ -515,6 +527,15 @@ CCD_TOL_GAP = 1e-5
 CCD_TOL_POS = 3e-4
 CCD_TIE_LANES = 6
 CCD_TIE_SHARE = 1e-5
+# The kinematics kernel (float32) against the plain version in float64 on
+# the same qpos: per output, its largest error over every finite entry at
+# most KIN_RATIO times the plain float32 version's, plus KIN_SLACK float32
+# ulps of the output's scale (the two round in another order: nvcc fuses
+# multiply-adds); the same entries non-finite. In float64 both do the same
+# arithmetic: KIN_F64_ULPS float64 ulps of the output's scale.
+KIN_RATIO = 2.0
+KIN_SLACK = 8 * 2.0 ** -23
+KIN_F64_ULPS = 64 * 2.0 ** -52
 # device_ms: cycles of the spin kernel that holds the queue (~50 ms)
 SPIN_CYCLES = 100_000_000
 ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
@@ -834,6 +855,60 @@ def hold_ccd(label, calls, CK, ccd, n_classes):
             "bytes": moved, "over": over, "cap": cap}
 
 
+def hold_kin(label, KK, K, m, data):
+    """The forward kinematics kernel on ``data``'s qpos (``m`` on the card,
+    float32) against the plain version there in float32, both held to the
+    plain version in float64 per output (KIN_RATIO, KIN_SLACK), and the
+    kernel in float64 (KIN_F64_ULPS); each output in the plain version's
+    strides. Times the kernel (device ms, the queue held by a spin kernel)
+    and the plain version. Returns the kernels line's numbers."""
+    import torch
+    m64 = m.to(dtype=torch.float64)
+    d64 = data.replace(qpos=data.qpos.double())
+    n0 = KK.kinematics.launches
+    got, got64 = KK.kinematics(m, data), KK.kinematics(m64, d64)
+    want, want64 = K.kinematics(m, data), K.kinematics(m64, d64)
+    torch.cuda.synchronize()
+    if KK.kinematics.launches != n0 + 2:
+        fail(f"{label} kinematics: the kernel did not launch")
+    worst = 0.0
+    for k in KK.OUTPUTS:
+        g, w, g64, t = (getattr(x, k) for x in (got, want, got64, want64))
+        if g.stride() != w.stride():
+            fail(f"{label} kinematics {k}: strides {g.stride()}, the plain "
+                 f"version's {w.stride()}")
+        fin = torch.isfinite(t)
+        if not torch.equal(torch.isfinite(g), fin):
+            fail(f"{label} kinematics {k}: non-finite where float64 is not")
+        scale = max(t[fin].abs().max().item(), 1.0)
+        e_k = (g.double() - t)[fin].abs().max().item()
+        e_p = (w.double() - t)[fin].abs().max().item()
+        e64 = (g64 - t)[fin].abs().max().item()
+        cap = KIN_RATIO * e_p + KIN_SLACK * scale
+        worst = max(worst, (g - w)[fin].abs().max().item())
+        print(f"  {label} kinematics {k:9s} max |kernel - f64| {e_k:.3e}, "
+              f"plain f32 {e_p:.3e} (cap {cap:.3e}); kernel f64 {e64:.3e} "
+              f"(cap {KIN_F64_ULPS * scale:.3e})", flush=True)
+        if not e_k <= cap:
+            fail(f"{label} kinematics {k}: {e_k:.3e} from float64 > "
+                 f"{cap:.3e}")
+        if not e64 <= KIN_F64_ULPS * scale:
+            fail(f"{label} kinematics {k}: the float64 kernel {e64:.3e} "
+                 f"from the plain version")
+    B_k = data.qpos.shape[1]
+    work = KK.kinematics_work(m.nbody, m.njnt, m.ngeom, m.nsite, m.nq, B_k,
+                              jnt_type=m.jnt_type)
+    ms = device_ms(lambda: KK.kinematics(m, data), 50)
+    pms = cuda_ms(lambda: K.kinematics(m, data), 3)
+    b_ms, by = bound(work["flops"], work["bytes"])
+    print(f"  {label} kinematics B={B_k}: kernel {ms:.4f} ms, plain "
+          f"{pms:.3f} ms, bound {b_ms:.4f} ms ({by}: "
+          f"{work['bytes'] / 1e6:.1f} MB), {100 * b_ms / ms:.1f} % of it",
+          flush=True)
+    return {"err": worst, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+            "flops": work["flops"], "bytes": work["bytes"]}
+
+
 def param_vector(*modules):
     """Every parameter of ``modules`` (or of a DualParams) as one float64
     vector on the CPU."""
@@ -1072,12 +1147,14 @@ def main() -> int:
                                             walk_imitation, walk_on_ball)
     from flybody_tpu_torch.ops import admm_kernel as AK
     from flybody_tpu_torch.ops import ccd_kernel as CK
+    from flybody_tpu_torch.ops import kinematics_kernel as KK
     from flybody_tpu_torch.ops import solver_kernels as SK
     from flybody_tpu_torch.ops import tree_ldl as TL
     from flybody_tpu_torch.physics import bridge
     from flybody_tpu_torch.physics import ccd as CCD
     from flybody_tpu_torch.physics import constraint as C
     from flybody_tpu_torch.physics import forward as F
+    from flybody_tpu_torch.physics import kinematics as K
     from flybody_tpu_torch.physics import solver_dense as SD
     from flybody_tpu_torch.physics import solver_fused as SF
     from flybody_tpu_torch.envs.core import FlyEnv
@@ -1103,6 +1180,7 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         CK.narrowphase.launches = 0
+        KK.kinematics.launches = 0
 
     def counts() -> dict:
         return {k: w.launches for k, w in wrappers.items()}
@@ -1156,6 +1234,7 @@ def main() -> int:
     dt = time.perf_counter() - t0
     launched = counts()
     ccd_launched = CK.narrowphase.launches
+    kin_launched = KK.kinematics.launches
     sps = B * STEPS / dt
     print(f"main: walk_on_ball B={B} reset {reset_s:.3f} s, {STEPS} "
           f"control steps in {dt:.3f} s = {sps:.1f} env-steps/s "
@@ -1173,6 +1252,18 @@ def main() -> int:
     if ccd_launched != ccd_want:
         fail("ccd_narrowphase was not launched once per class a substep "
              "and reset")
+
+    def kin_gate(label, launched_k, steps, n_substeps):
+        """The forward kinematics kernel: once a substep and once in the
+        autoreset's reset."""
+        want_k = steps * (n_substeps + 1)
+        print(f"{label}: kinematics launches {launched_k} (expected "
+              f"{want_k})", flush=True)
+        if launched_k != want_k:
+            fail(f"{label}: the kinematics kernel was not launched once a "
+                 f"substep and reset")
+
+    kin_gate("main", kin_launched, STEPS, env.n_substeps)
     for k, v in state.obs.items():
         if not bool(torch.isfinite(v).all()):
             fail(f"obs {k} not finite")
@@ -1742,6 +1833,16 @@ def main() -> int:
     env_i = walk_imitation()
     mi = env_i.model
     state_i, launched_i, _ = env_phase("imitation", env_i, IMIT_STEPS)
+    kin_gate("imitation", KK.kinematics.launches, IMIT_STEPS,
+             env_i.n_substeps)
+    hk = hold_kin("imitation", KK, K, mi, state_i.data)
+    rows["kinematics"] = kernel_row(
+        "kinematics", "kinematics.cu",
+        "flybody_tpu_torch/physics/kinematics.py::kinematics (plain jnp in "
+        "the JAX package)", kin_launched, hk["err"], hk["ms"],
+        hk["plain_ms"], hk["flops"], hk["bytes"])
+    rows["kinematics"]["launches_imitation"] = (
+        IMIT_STEPS * (env_i.n_substeps + 1))
     # the floor in contact: selected contacts with the floor geom on one
     # side (in a plane pair the floor is geom 1) that penetrate, and those
     # of them among the fused solver's cones
@@ -2254,6 +2355,13 @@ def main() -> int:
     if env_r.n_substeps != 20:
         fail(f"rodent: {env_r.n_substeps} substeps per control step")
     state_r, launched_r, _ = env_phase("rodent", env_r, RODENT_STEPS)
+    kin_gate("rodent", KK.kinematics.launches, RODENT_STEPS,
+             env_r.n_substeps)
+    hk = hold_kin("rodent", KK, K, mr, state_r.data)
+    rows["kinematics"].update(
+        launches_rodent=RODENT_STEPS * (env_r.n_substeps + 1),
+        max_abs_err_rodent=hk["err"], ms_rodent=hk["ms"],
+        plain_ms_rodent=hk["plain_ms"], bound_ms_rodent=hk["bound_ms"])
     rodent_s["two_touch"] = time.perf_counter() - t13
     def lowered(label, env_x, data, ground, other=None, pitch=None):
         """The first 4 envs of ``data`` (numpy), the root turned nose down
@@ -2947,6 +3055,8 @@ def main() -> int:
     occupancy += [("ccd_narrowphase", f"_{int(a1)}{int(a2)}",
                    CK.kernel_info(a1, a2))
                   for a1 in (False, True) for a2 in (False, True)]
+    occupancy += [("kinematics", "", KK.kernel_info(f32)),
+                  ("kinematics", "_f64", KK.kernel_info(f64))]
     for name, at, info in occupancy:
         cpl = (f" ({info['cpl']} columns per lane)" if "cpl" in info
                else "")
@@ -2971,7 +3081,7 @@ def main() -> int:
         key = "" if label == "fly" else "_" + label.replace(" ", "_")
         rows["solve_rows"][f"replayed{key}"] = rep
     order = ("solve_rows", "apgd_iterate", "upsolve_build_yd", "upsolve_yd",
-             "admm_iterate", "ccd_narrowphase")
+             "admm_iterate", "ccd_narrowphase", "kinematics")
     print(f"wall s per phase {json.dumps(phase_s)}, in all "
           f"{sum(phase_s.values()):.1f} s", flush=True)
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)

@@ -5,9 +5,11 @@ vnl_ray/inverse_kinematics.py: momentum gradient descent on
 ||s(q) - s*||^2 + a ||q - q0||^2). The gradient comes from
 ``torch.autograd.grad`` through the port's ``physics.kinematics`` (its
 level-by-level writes into preallocated tensors are differentiable index
-writes), of one objective summed over the whole batch, so each env gets
-its own gradient; the descent is a plain loop of ``max_steps`` steps,
-batched over the env axis (e.g. every frame of a clip at once).
+writes), on every device: the forward pass's CUDA kernel
+(``ops/kinematics_kernel.py``) has no backward. One objective is summed
+over the whole batch, so each env gets its own gradient; the descent is
+a plain loop of ``max_steps`` steps, batched over the env axis (e.g.
+every frame of a clip at once).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ carries a hash of the source and of every ``csrc/*.cuh`` header, so an
 edited source or header is rebuilt and a stale library is never loaded.
 Nothing is built at import time: a kernel's wrapper calls ``load`` on its
 first launch, and ``build_all`` builds every source at once (one nvcc
-process per source, all started together).
+process per source, all started together); so does the first ``load`` of
+a source not built yet.
 """
 
 from __future__ import annotations
@@ -93,12 +94,13 @@ def build_all(names=None) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` (built on first use)."""
+    """The built library for ``csrc/<name>.cu``. Its first use builds it
+    together with every other source not built yet, all at once."""
     lib = _loaded.get(name)
     if lib is None:
         path = lib_path(name)
         if not os.path.exists(path):
-            build_all([name])
+            build_all()
         lib = ctypes.CDLL(path)
         err = lib.fb_cuda_error_string
         err.argtypes = [ctypes.c_int]

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from flybody_tpu_torch.math import bquat as bq
+from flybody_tpu_torch.ops import kinematics_kernel as KK
 from flybody_tpu_torch.ops import tree_ldl as TL
 from flybody_tpu_torch.physics import actuation as A
 from flybody_tpu_torch.physics import collision as col
@@ -33,7 +34,7 @@ def _stage(name: str, fn, m: Model, d: Data, **kw) -> Data:
 def fwd_position(m: Model, d: Data, col_update: bool = False) -> Data:
     """col_update=True runs the selection-persistent collision refresh
     (Model.col_refresh > 1 schedule) instead of the full selection."""
-    d = _stage("kinematics", K.kinematics, m, d)
+    d = _stage("kinematics", KK.kinematics, m, d)
     d = _stage("com_pos", K.com_pos, m, d)
     d = _stage("tendon", K.tendon, m, d)
     d = _stage("crb", S.crb, m, d)

@@ -137,6 +137,8 @@ def test_cpu_never_builds_or_loads(cpu_lanes, monkeypatch):
 
     monkeypatch.setattr(cuda_build, "load", refuse)
     monkeypatch.setattr(cuda_build, "build_all", refuse)
+    # earlier tests of the same pytest run on a card may have loaded it
+    monkeypatch.setattr(cuda_build, "_loaded", {})
     args, kw = cpu_lanes["fly"][4]
     CK.narrowphase(*args, **kw)
     assert CK.SOURCE not in cuda_build._loaded

@@ -236,6 +236,8 @@ def test_counters_equal_hand_counts(fly, traced):
     assert c == {"solver.rows": float(env.n_substeps * R * B),
                  "solver.rows_used": float(used),
                  "ccd.lanes": float((env.n_substeps + 1) * lanes),
+                 "kinematics.bodies": float((env.n_substeps + 1)
+                                            * env.model.nbody * B),
                  "env.reset_built": float(B),
                  "env.done": float(traced["out"].done.sum())}
 
@@ -250,7 +252,8 @@ def test_counters_with_a_forced_done(fly):
     finally:
         state.rng.set_state(rng)
     assert tm.counters() == {"env.reset_built": float(B), "env.done": 1.0,
-                             "ccd.lanes": float(env.model.ccd_budget * B)}
+                             "ccd.lanes": float(env.model.ccd_budget * B),
+                             "kinematics.bodies": float(env.model.nbody * B)}
     tm.clear()
 
 
