@@ -1997,7 +1997,7 @@ def main() -> int:
     # (a pair on a trench wall, its normal near horizontal, moves less
     # than the fly: lower again until one penetrates)
     ter_g = mv.names["geom"]["terrain"]
-    hslots = mv.ix(np.nonzero(COL._slot_identity(mv)[0] == ter_g)[0])
+    hslots = mv.ix(np.nonzero(COL.slot_layout(mv).g1 == ter_g)[0])
     touch = first_four(dv)
     lowered = np.zeros(4)
     for _ in range(8):
@@ -2370,7 +2370,7 @@ def main() -> int:
         geom of type ``other`` (any) lies 2 mm deep."""
         mx = env_x.model
         gt = np.asarray(mx.geom_type)
-        g1, g2 = COL._slot_identity(mx)[:2]
+        g1, g2 = COL.slot_layout(mx).g1, COL.slot_layout(mx).g2
         slots = mx.ix(np.nonzero((g1 == ground) & (
             (gt[g2] == other) if other is not None else True))[0])
         small_x = first_four(data)

@@ -21,16 +21,9 @@ import torch
 
 from flybody_tpu_torch.math import quaternions as mq
 from flybody_tpu_torch.physics import types as T
+from flybody_tpu_torch.physics.collision import selected_force, slot_layout
+from flybody_tpu_torch.physics.kinematics import joint_plan
 from flybody_tpu_torch.physics.types import Data, Model
-
-
-def _slot_geoms(model: Model):
-    """(g1, g2) of every candidate slot: the analytic slots, then the
-    convex narrowphase's pairs."""
-    from flybody_tpu_torch.physics.collision import _slot_identity
-    g1, g2 = _slot_identity(model)[:2]
-    return (np.concatenate([g1, np.asarray(model.ccd_geom1, np.int64)]),
-            np.concatenate([g2, np.asarray(model.ccd_geom2, np.int64)]))
 
 
 class RodentWalker:
@@ -89,8 +82,7 @@ class RodentWalker:
         # mocap joints: every scalar joint in model order (the free root
         # excluded), for the tracking features
         jt = np.asarray(model.jnt_type)
-        scalar = (jt == T.HINGE) | (jt == T.SLIDE)
-        joints = [j for j in range(model.njnt) if scalar[j]]
+        joints = joint_plan(model).scalar[0].tolist()
         self.joint_qposadr = np.asarray(model.jnt_qposadr)[joints]
         self.joint_dofadr = np.asarray(model.jnt_dofadr)[joints]
         # observable joints: the actuated joints in actuator order
@@ -231,20 +223,17 @@ class RodentWalker:
 
     def contact_flag(self, model: Model, data: Data, geoms_a, geoms_b):
         """(B,) 1.0 where a selected contact with a nonzero force joins a
-        geom of set a with one of set b. ``warm_sel`` holds candidate slot
-        ids: the analytic slots below ``ncon_max``, the convex
-        narrowphase's pairs above it; -1 pads. (The JAX package's table
-        is over candidate pairs, indexed by those slot ids; ROADMAP C.)"""
+        geom of set a with one of set b, analytic and convex slots alike.
+        (The JAX package's table is over candidate pairs, indexed by the
+        slot ids; ROADMAP C.)"""
         B = data.qpos.shape[-1]
         if model.ncon_max == 0 or data.warm_sel.shape[0] == 0:
             return data.qpos.new_zeros((B,))
-        g1, g2 = model.plan("slot_geoms", _slot_geoms)
-        joins = ((np.isin(g1, geoms_a) & np.isin(g2, geoms_b))
-                 | (np.isin(g1, geoms_b) & np.isin(g2, geoms_a)))
-        mask = model.const(joins).to(data.qpos.dtype)
-        sel = data.warm_sel.long()
-        flag = torch.where(sel >= 0, mask[sel.clamp(min=0)],
-                           torch.zeros((), dtype=data.qpos.dtype,
-                                       device=sel.device))
-        hit = torch.sum(torch.abs(data.warm_f[:, 0]) * flag, dim=0)
-        return (hit > 0).to(data.qpos.dtype)
+        a, b = np.asarray(geoms_a, np.int64), np.asarray(geoms_b, np.int64)
+
+        def build(m):
+            g1, g2 = slot_layout(m).cand_g1, slot_layout(m).cand_g2
+            return m.const((np.isin(g1, a) & np.isin(g2, b))
+                           | (np.isin(g1, b) & np.isin(g2, a)))
+        mask = model.plan(("contact_flag", a.tobytes(), b.tobytes()), build)
+        return (selected_force(data, mask) > 0).to(data.qpos.dtype)

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from flybody_tpu_torch.math import quaternions as mq
-from flybody_tpu_torch.physics import types as T
+from flybody_tpu_torch.physics.collision import selected_force, slot_layout
+from flybody_tpu_torch.physics.kinematics import joint_plan
 from flybody_tpu_torch.physics.types import Data, Model
 
 # Action classes in canonical order (models/fruitfly.ACTION_CLASSES).
@@ -42,16 +43,12 @@ class FlyWalker:
             self.sensor_adr[name] = (int(np.asarray(model.sensor_adr)[sid]),
                                      int(np.asarray(model.sensor_dim)[sid]))
         # observable joints: scalar joints minus the disabled body parts'
-        jt = np.asarray(model.jnt_type)
-        scalar = (jt == T.HINGE) | (jt == T.SLIDE)
+        fly_joints = joint_plan(model).scalar[0].tolist()
         obs_names = action_maps.get("observable_joints")
         if obs_names is not None:
             keep = {names["joint"][n] for n in obs_names
                     if n in names["joint"]}
-            fly_joints = [j for j in range(model.njnt)
-                          if scalar[j] and j in keep]
-        else:
-            fly_joints = [j for j in range(model.njnt) if scalar[j]]
+            fly_joints = [j for j in fly_joints if j in keep]
         self.joint_qposadr = np.asarray(model.jnt_qposadr)[fly_joints]
         self.joint_dofadr = np.asarray(model.jnt_dofadr)[fly_joints]
         # ctrl routing: env action index per ctrl slot (-1 = none); the
@@ -150,22 +147,11 @@ class FlyWalker:
 
     def self_contact(self, model: Model, data: Data):
         """(B,) sum of the normal force magnitudes of the selected contacts
-        between two fly bodies (reference fruitfly.py:640-659). A slot id
-        of ``warm_sel`` below ``ncon_max`` is an analytic pair's contact,
-        one above it a convex-narrowphase candidate pair's; -1 pads."""
-        B = data.qpos.shape[-1]
-        if data.warm_sel.shape[0] == 0:
-            return data.qpos.new_zeros((B,))
-        from flybody_tpu_torch.physics.actuation import slot_bodies
-        b1, b2 = slot_bodies(model)
-        b1 = np.concatenate([b1, np.asarray(model.ccd_b1, np.int64)])
-        b2 = np.concatenate([b2, np.asarray(model.ccd_b2, np.int64)])
-        both_fly = model.const((b1 != 0) & (b2 != 0)).to(data.qpos.dtype)
-        sel = data.warm_sel.long()
-        flag = torch.where(sel >= 0, both_fly[sel.clamp(min=0)],
-                           torch.zeros((), dtype=data.qpos.dtype,
-                                       device=sel.device))
-        return torch.sum(torch.abs(data.warm_f[:, 0]) * flag, dim=0)
+        between two fly bodies (reference fruitfly.py:640-659), analytic
+        and convex slots alike."""
+        both_fly = model.plan("fly_self_contact", lambda m: m.const(
+            (slot_layout(m).cand_b1 != 0) & (slot_layout(m).cand_b2 != 0)))
+        return selected_force(data, both_fly)
 
     def egocentric_to_world(self, data: Data, vec):
         """(B, ..., 3) vectors in the thorax frame -> world frame."""

@@ -8,6 +8,8 @@ contact-normal Jacobian rows over the active contacts of the target body.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -15,8 +17,48 @@ from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.types import Data, Model
 
 
+def actuator_plan(m: Model) -> SimpleNamespace:
+    """The model's static actuator masks and index sets, built once:
+    ``integrator``, ``filter`` (filter and filterexact) and ``filterexact``
+    as (ids, act address); ``joint`` as (ids, qpos address, dof address);
+    ``tendon`` and ``adhesion`` as (ids, tendon or body id); None if empty."""
+    def build(m):
+        def ids(mask, *cols):
+            """(ids, each of cols at ids) as index tensors; None if empty."""
+            i = np.flatnonzero(mask)
+            if len(i) == 0:
+                return None
+            return (m.ix(i),) + tuple(m.ix(c[i]) for c in cols)
+
+        dyn = np.asarray(m.actuator_dyntype)
+        actadr = np.asarray(m.actuator_actadr)
+        trntype = np.asarray(m.actuator_trntype)
+        trnid = np.asarray(m.actuator_trnid)[:, 0]
+        jnt = np.where(trntype == T.TRN_JOINT, trnid, 0)
+        has_act = dyn != T.DYN_NONE
+        filt = (dyn == T.DYN_FILTER) | (dyn == T.DYN_FILTEREXACT)
+        return SimpleNamespace(
+            ctrllimited=m.const(np.asarray(m.actuator_ctrllimited, bool)),
+            forcelimited=m.const(np.asarray(m.actuator_forcelimited, bool)),
+            integrator=ids(dyn == T.DYN_INTEGRATOR, actadr),
+            filter=ids(filt, actadr),
+            filterexact=ids(dyn == T.DYN_FILTEREXACT, actadr),
+            has_act=m.const(has_act),
+            act_idx=m.ix(np.where(has_act, np.maximum(actadr, 0), 0)),
+            gain_affine=m.const(np.asarray(m.actuator_gaintype)
+                                == T.GAIN_AFFINE),
+            bias_affine=m.const(np.asarray(m.actuator_biastype)
+                                == T.BIAS_AFFINE),
+            joint=ids(trntype == T.TRN_JOINT,
+                      np.asarray(m.jnt_qposadr)[jnt],
+                      np.asarray(m.jnt_dofadr)[jnt]),
+            tendon=ids(trntype == T.TRN_TENDON, trnid),
+            adhesion=ids(trntype == T.TRN_BODY, trnid))
+    return m.plan("actuators", build)
+
+
 def clamp_ctrl(m: Model, ctrl: torch.Tensor) -> torch.Tensor:
-    limited = m.const(np.asarray(m.actuator_ctrllimited, dtype=bool))
+    limited = actuator_plan(m).ctrllimited
     lo = m.actuator_ctrlrange[:, 0:1]
     hi = m.actuator_ctrlrange[:, 1:2]
     return torch.where(limited[:, None],
@@ -28,39 +70,16 @@ def act_dynamics(m: Model, d: Data) -> Data:
     if m.na == 0:
         return d
     ctrl = clamp_ctrl(m, d.ctrl)
-    dyn = np.asarray(m.actuator_dyntype)
-    actadr = np.asarray(m.actuator_actadr)
+    p = actuator_plan(m)
     act_dot = torch.zeros_like(d.act)
-    integ = np.nonzero(dyn == T.DYN_INTEGRATOR)[0]
-    if len(integ):
-        act_dot[m.ix(actadr[integ])] = ctrl[m.ix(integ)]
-    filt = np.nonzero((dyn == T.DYN_FILTER) | (dyn == T.DYN_FILTEREXACT))[0]
-    if len(filt):
-        tau = torch.clamp(m.actuator_dynprm[m.ix(filt), 0], min=1e-12)
-        a = m.ix(actadr[filt])
-        act_dot[a] = (ctrl[m.ix(filt)] - d.act[a]) / tau[:, None]
+    if p.integrator is not None:
+        ids, a = p.integrator
+        act_dot[a] = ctrl[ids]
+    if p.filter is not None:
+        ids, a = p.filter
+        tau = torch.clamp(m.actuator_dynprm[ids, 0], min=1e-12)
+        act_dot[a] = (ctrl[ids] - d.act[a]) / tau[:, None]
     return d.replace(act_dot=act_dot)
-
-
-def slot_bodies(m: Model):
-    """Static (ncon_max,) body ids of geom1/geom2 per contact slot."""
-    from flybody_tpu_torch.physics.io_mj import PAIR_NCON
-    gb = np.asarray(m.geom_bodyid)
-    pt = np.asarray(m.pair_type)
-    g1, g2 = np.asarray(m.pair_geom1), np.asarray(m.pair_geom2)
-    b1, b2 = [], []
-    for k in range(len(g1)):
-        n = PAIR_NCON[(int(pt[k, 0]), int(pt[k, 1]))]
-        b1 += [gb[g1[k]]] * n
-        b2 += [gb[g2[k]]] * n
-    return np.array(b1, dtype=np.int64), np.array(b2, dtype=np.int64)
-
-
-def _adhesion_acts(m: Model):
-    """Static (actuator id, target body id) pairs of adhesion actuators."""
-    acts = np.nonzero(np.asarray(m.actuator_trntype) == T.TRN_BODY)[0]
-    bodies = np.asarray(m.actuator_trnid)[acts, 0]
-    return acts, bodies
 
 
 def adhesion_qfrc(m: Model, d: Data, force: torch.Tensor) -> torch.Tensor:
@@ -72,9 +91,10 @@ def adhesion_qfrc(m: Model, d: Data, force: torch.Tensor) -> torch.Tensor:
     (row scatter-adds over the selected contacts' two bodies), then mapped to
     dofs through the static (nbody, nv) support mask."""
     qfrc = torch.zeros_like(d.qvel)
-    acts, bodies = _adhesion_acts(m)
-    if len(acts) == 0 or (m.ncon_max == 0 and m.nccd == 0):
+    adhesion = actuator_plan(m).adhesion
+    if adhesion is None or (m.ncon_max == 0 and m.nccd == 0):
         return qfrc
+    acts, bodies = adhesion
     from flybody_tpu_torch.math import bquat as bq
     from flybody_tpu_torch.ops import rows
     from flybody_tpu_torch.physics import solver_fused as SF
@@ -83,14 +103,14 @@ def adhesion_qfrc(m: Model, d: Data, force: torch.Tensor) -> torch.Tensor:
     con = d.contact
 
     active = (con.dist < con.marginfull).to(dtype)          # (Ksum, B)
-    bod = m.ix(bodies)[:, None, None]                       # (nact, 1, 1)
+    bod = bodies[:, None, None]                             # (nact, 1, 1)
     member = ((con.b1[None].long() == bod)
               | (con.b2[None].long() == bod)).to(dtype)     # (nact, Ksum, B)
     count = torch.sum(member * active[None], dim=1)         # (nact, B)
-    gain = m.actuator_gear[m.ix(acts), 0]
+    gain = m.actuator_gear[acts, 0]
     scale = torch.where(count > 0,
                         -gain[:, None] / torch.clamp(count, min=1.0),
-                        torch.zeros_like(count)) * force[m.ix(acts)]
+                        torch.zeros_like(count)) * force[acts]
     coeff = torch.sum(member * scale[:, None, :], dim=0) * active
 
     normal = con.frame[:, 0]                                # (Ksum, 3, B)
@@ -109,48 +129,37 @@ def actuation(m: Model, d: Data) -> Data:
     if m.nu == 0:
         return d.replace(qfrc_actuator=torch.zeros_like(d.qvel))
     ctrl = clamp_ctrl(m, d.ctrl)
-    dyn = np.asarray(m.actuator_dyntype)
-    actadr = np.asarray(m.actuator_actadr)
-    has_act = dyn != T.DYN_NONE
-    act_idx = np.where(has_act, np.maximum(actadr, 0), 0)
-    inp = (torch.where(m.const(has_act)[:, None], d.act[m.ix(act_idx)], ctrl)
+    p = actuator_plan(m)
+    inp = (torch.where(p.has_act[:, None], d.act[p.act_idx], ctrl)
            if m.na else ctrl)
 
-    gaintype = np.asarray(m.actuator_gaintype)
     gp = m.actuator_gainprm
-    gain = torch.where(m.const(gaintype == T.GAIN_AFFINE)[:, None],
+    gain = torch.where(p.gain_affine[:, None],
                        gp[:, 0:1] + gp[:, 1:2] * d.actuator_length
                        + gp[:, 2:3] * d.actuator_velocity,
                        gp[:, 0:1])
-    biastype = np.asarray(m.actuator_biastype)
     bp = m.actuator_biasprm
-    bias = torch.where(m.const(biastype == T.BIAS_AFFINE)[:, None],
+    bias = torch.where(p.bias_affine[:, None],
                        bp[:, 0:1] + bp[:, 1:2] * d.actuator_length
                        + bp[:, 2:3] * d.actuator_velocity,
                        torch.zeros_like(d.actuator_length))
     force = gain * inp + bias
-    flimited = m.const(np.asarray(m.actuator_forcelimited, dtype=bool))
     force = torch.where(
-        flimited[:, None],
+        p.forcelimited[:, None],
         torch.minimum(torch.maximum(force, m.actuator_forcerange[:, 0:1]),
                       m.actuator_forcerange[:, 1:2]),
         force)
 
     qfrc = torch.zeros_like(d.qvel)
-    trntype = np.asarray(m.actuator_trntype)
-    trnid = np.asarray(m.actuator_trnid)[:, 0]
     gear0 = m.actuator_gear[:, 0]
-    jnt_dofadr = np.asarray(m.jnt_dofadr)
-    jids = np.nonzero(trntype == T.TRN_JOINT)[0]
-    if len(jids):
-        qfrc.index_add_(0, m.ix(jnt_dofadr[trnid[jids]]),
-                        gear0[m.ix(jids)][:, None] * force[m.ix(jids)])
-    tids = np.nonzero(trntype == T.TRN_TENDON)[0]
-    if len(tids):
+    if p.joint is not None:
+        ids, _, dadr = p.joint
+        qfrc.index_add_(0, dadr, gear0[ids][:, None] * force[ids])
+    if p.tendon is not None:
         from flybody_tpu_torch.physics import kinematics as K
+        ids, tids = p.tendon
         ten_frc = d.qpos.new_zeros((m.ntendon, d.qpos.shape[-1]))
-        ten_frc.index_add_(0, m.ix(trnid[tids]),
-                           gear0[m.ix(tids)][:, None] * force[m.ix(tids)])
+        ten_frc.index_add_(0, tids, gear0[ids][:, None] * force[ids])
         qfrc = qfrc + K.ten_moment_apply(m, d, ten_frc)
 
     qfrc = qfrc + adhesion_qfrc(m, d, force)

@@ -25,12 +25,15 @@ NotImplementedError for a pair neither package has.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from flybody_tpu_torch.math import bquat as bq
 from flybody_tpu_torch.ops import rows
 from flybody_tpu_torch.physics import types as T
+from flybody_tpu_torch.physics.io_mj import PAIR_NCON
 from flybody_tpu_torch.physics.types import Contact, Data, Model
 
 
@@ -390,70 +393,89 @@ def _dispatch(m: Model, t1: int, t2: int):
     raise NotImplementedError(f"collision pair {(t1, t2)}")
 
 
-def _pair_groups(m: Model):
-    """Static layout shared by _narrowphase and collision_update:
-    ({(t1, t2): [pair indices]} in first-occurrence order, slot_of_pair
-    prefix sums)."""
-    from flybody_tpu_torch.physics.io_mj import PAIR_NCON
-    ptypes = np.asarray(m.pair_type)
-    npair = ptypes.shape[0]
-    groups: dict = {}
-    for k in range(npair):
-        groups.setdefault((int(ptypes[k, 0]), int(ptypes[k, 1])),
-                          []).append(k)
-    slot_of_pair = np.concatenate(
-        [[0], np.cumsum([PAIR_NCON[(int(ptypes[k, 0]), int(ptypes[k, 1]))]
-                         for k in range(npair)])]).astype(int)
-    return groups, slot_of_pair
+@dataclasses.dataclass(frozen=True, eq=False)
+class SlotLayout:
+    """A model's contact slots (``slot_layout``): pair k owns the analytic
+    slots ``slot_of_pair[k]:slot_of_pair[k + 1]`` (PAIR_NCON of its type
+    pair), the convex narrowphase's pair i the slot ncon_max + i. Per
+    analytic slot: geoms, bodies, ``typ`` (its type pair's index in
+    ``groups``) and ``sub`` (its sub-contact); ``cand_*`` run over every
+    candidate slot, the analytic then the convex ones."""
+
+    groups: dict             # {(t1, t2): pair ids}, first-occurrence order
+    slot_of_pair: np.ndarray
+    g1: np.ndarray; g2: np.ndarray; b1: np.ndarray; b2: np.ndarray
+    typ: np.ndarray; sub: np.ndarray
+    cand_g1: np.ndarray; cand_g2: np.ndarray
+    cand_b1: np.ndarray; cand_b2: np.ndarray
+    group_ix: tuple          # per group: (geom1, geom2, slots) tensors
+    condim_slots: dict       # {condim: slots tensor}
+    condim_typ: dict         # {condim: ((typ, (t1, t2)) among its slots)}
 
 
-def _slot_identity(m: Model):
-    """Static per-slot (g1, g2, typ, sub) over the ncon_max analytic
-    slots: typ indexes the _pair_groups order, sub the sub-contact."""
-    groups, slot_of_pair = _pair_groups(m)
-    g1s = np.asarray(m.pair_geom1)
-    g2s = np.asarray(m.pair_geom2)
-    typ_of_pair = np.zeros(len(g1s), dtype=np.int64)
-    for tid, (_, pidx) in enumerate(groups.items()):
-        typ_of_pair[pidx] = tid
-    slot_g1 = np.zeros(m.ncon_max, dtype=np.int64)
-    slot_g2 = np.zeros(m.ncon_max, dtype=np.int64)
-    slot_typ = np.zeros(m.ncon_max, dtype=np.int64)
-    slot_sub = np.zeros(m.ncon_max, dtype=np.int64)
-    for p in range(len(g1s)):
-        a, b = slot_of_pair[p], slot_of_pair[p + 1]
-        slot_g1[a:b] = g1s[p]
-        slot_g2[a:b] = g2s[p]
-        slot_typ[a:b] = typ_of_pair[p]
-        slot_sub[a:b] = np.arange(b - a)
-    return slot_g1, slot_g2, slot_typ, slot_sub
+def _slot_layout(m: Model) -> SlotLayout:
+    pt = [tuple(t) for t in np.asarray(m.pair_type).reshape(-1, 2).tolist()]
+    keys = list(dict.fromkeys(pt))                 # first-occurrence order
+    groups = {t: np.array([k for k, u in enumerate(pt) if u == t])
+              for t in keys}
+    typ_of_pair = np.array([keys.index(t) for t in pt], np.int64)
+    n = np.array([PAIR_NCON[t] for t in pt], np.int64)
+    slot_of_pair = np.concatenate([[0], np.cumsum(n)])
+    pair = np.repeat(np.arange(len(pt)), n)        # each slot's pair
+    pg1 = np.asarray(m.pair_geom1, np.int64)
+    pg2 = np.asarray(m.pair_geom2, np.int64)
+    g1, g2, typ = pg1[pair], pg2[pair], typ_of_pair[pair]
+    gb = np.asarray(m.geom_bodyid, np.int64)
+    con_dim = np.asarray(m.con_dim)
+    cond = {int(cd): np.flatnonzero(con_dim == cd)
+            for cd in np.unique(con_dim)}
+    cat = lambda a, b: np.concatenate([a, np.asarray(b, np.int64)])
+    return SlotLayout(
+        groups=groups, slot_of_pair=slot_of_pair, g1=g1, g2=g2,
+        b1=gb[g1], b2=gb[g2], typ=typ,
+        sub=np.arange(len(pair)) - slot_of_pair[pair],
+        cand_g1=cat(g1, m.ccd_geom1), cand_g2=cat(g2, m.ccd_geom2),
+        cand_b1=cat(gb[g1], m.ccd_b1), cand_b2=cat(gb[g2], m.ccd_b2),
+        group_ix=tuple((m.ix(pg1[p]), m.ix(pg2[p]),
+                        m.ix(np.flatnonzero(typ == tid)))
+                       for tid, p in enumerate(groups.values())),
+        condim_slots={cd: m.ix(s) for cd, s in cond.items()},
+        condim_typ={cd: tuple((int(t), keys[t]) for t in np.unique(typ[s]))
+                    for cd, s in cond.items()})
+
+
+def slot_layout(m: Model) -> SlotLayout:
+    """The model's contact-slot layout, built once per model."""
+    return m.plan("slot_layout", _slot_layout)
+
+
+def selected_force(d: Data, mask: torch.Tensor) -> torch.Tensor:
+    """(B,) sum of the normal force magnitudes of the selected contacts
+    whose candidate slot (``warm_sel``'s ids; -1 pads) has ``mask`` set
+    (a bool per candidate slot)."""
+    sel = d.warm_sel.long()
+    flag = torch.where(sel >= 0, mask.to(d.qpos.dtype)[sel.clamp(min=0)],
+                       torch.zeros((), dtype=d.qpos.dtype,
+                                   device=sel.device))
+    return torch.sum(torch.abs(d.warm_f[:, 0]) * flag, dim=0)
 
 
 def _narrowphase(m: Model, d: Data):
     """All candidate pairs -> per-slot (dist (ncon, B), pos (ncon, 3, B),
     normal (ncon, 3, B))."""
-    from flybody_tpu_torch.physics.io_mj import PAIR_NCON
-    g1s = np.asarray(m.pair_geom1)
-    g2s = np.asarray(m.pair_geom2)
-    groups, slot_of_pair = _pair_groups(m)
+    lay = slot_layout(m)
     B = d.qpos.shape[-1]
     ncon = m.ncon_max
     dist = d.qpos.new_full((ncon, B), 1e10)
     pos = d.qpos.new_zeros((ncon, 3, B))
     nrm = d.qpos.new_zeros((ncon, 3, B))
     nrm[:, 2] = 1.0
-    for (t1, t2), pair_idx in groups.items():
+    for (t1, t2), (pg1, pg2, slots) in zip(lay.groups, lay.group_ix):
         fn = _dispatch(m, t1, t2)
-        k = PAIR_NCON[(t1, t2)]
-        pg1 = m.ix(g1s[pair_idx])
-        pg2 = m.ix(g2s[pair_idx])
         dd, pp, nn = fn(d.geom_xpos[pg1], d.geom_xmat[pg1],
                         m.geom_size[pg1][..., None],
                         d.geom_xpos[pg2], d.geom_xmat[pg2],
                         m.geom_size[pg2][..., None])
-        slots = m.ix(np.concatenate([np.arange(slot_of_pair[pi],
-                                               slot_of_pair[pi] + k)
-                                     for pi in pair_idx]))
         dist[slots] = dd.reshape(-1, B)
         pos[slots] = pp.reshape(-1, 3, B)
         nrm[slots] = nn.reshape(-1, 3, B)
@@ -464,17 +486,15 @@ def _slot_table(m: Model):
     """(ncon, 12) per-slot static solver params [solref0, solref1, mu,
     invw, includemargin, marginfull, b1, b2, g1, g2, typ, sub] and the
     (ncon, 5) solimp block."""
-    from flybody_tpu_torch.physics.actuation import slot_bodies
-    b1s, b2s = slot_bodies(m)
-    sg1, sg2, styp, ssub = _slot_identity(m)
-    invw = (m.body_invweight0[m.ix(b1s), 0]
-            + m.body_invweight0[m.ix(b2s), 0])
+    lay = slot_layout(m)
+    invw = (m.body_invweight0[m.ix(lay.b1), 0]
+            + m.body_invweight0[m.ix(lay.b2), 0])
     f = lambda x: m.const(np.asarray(x, np.float64))
     cols = torch.stack([
         m.con_solref[:, 0], m.con_solref[:, 1],
         m.con_friction[:, 0], invw, m.con_includemargin, m.con_margin,
-        f(b1s), f(b2s), f(sg1), f(sg2), f(styp), f(ssub),
-    ], dim=1)
+        f(lay.b1), f(lay.b2), f(lay.g1), f(lay.g2), f(lay.typ),
+        f(lay.sub)], dim=1)
     return cols, m.con_solimp
 
 
@@ -616,12 +636,11 @@ def collision(m: Model, d: Data) -> Data:
     if m.ncon_max:
         dist_all, pos_all, nrm_all = _narrowphase(m, d)
         table, solimp_t = m.plan("slot_table", _slot_table)
-        con_dim = np.asarray(m.con_dim)
+        cond = slot_layout(m).condim_slots
     for cd, K in meta.analytic_groups:
-        slots = np.nonzero(con_dim == cd)[0]
-        s_ix = m.ix(slots)
+        s_ix = cond[cd]
         dist_g = dist_all[s_ix]
-        if len(slots) > K:
+        if s_ix.shape[0] > K:
             eff = dist_g - m.con_includemargin[s_ix][:, None]
             idx = rows.smallest_k(eff, K)                 # (K, B)
             dist_l.append(torch.gather(dist_g, 0, idx))
@@ -671,23 +690,18 @@ def collision_update(m: Model, d: Data) -> Data:
     the stored solref/solimp at the new penetration."""
     from flybody_tpu_torch.ops import ccd_kernel
     from flybody_tpu_torch.physics.constraint import efc_meta, kbi
-    from flybody_tpu_torch.physics.io_mj import PAIR_NCON
     if m.ncon_max == 0 and m.ccd_budget == 0:
         return d
     meta = efc_meta(m)
     B = d.qpos.shape[-1]
     con = d.contact
-    con_dim = np.asarray(m.con_dim)
-    _, _, slot_typ, _ = _slot_identity(m)
-    groups, _ = _pair_groups(m)
-    group_list = [(key, PAIR_NCON[key]) for key in groups]
+    lay = slot_layout(m)
     payload = _geom_payload(m, d)
 
     dist_l, pos_l, nrm_l = [], [], []
     row = 0
     for cd, K in meta.analytic_groups:
-        slots = np.nonzero(con_dim == cd)[0]
-        nr = min(K, len(slots))
+        nr = min(K, lay.condim_slots[cd].shape[0])
         rs = slice(row, row + nr)
         row += nr
         lg1, lg2 = con.g1[rs], con.g2[rs]
@@ -700,12 +714,10 @@ def collision_update(m: Model, d: Data) -> Data:
         pos = d.qpos.new_zeros((nr, 3, B))
         nrm = d.qpos.new_zeros((nr, 3, B))
         nrm[:, 2] = 1.0
-        for tid, (key, kk) in enumerate(group_list):
-            if not np.any(slot_typ[slots] == tid):
-                continue
+        for tid, key in lay.condim_typ[cd]:
             dd, pp, nn = _dispatch(m, *key)(p1, M1, s1, p2, M2, s2)
             is_t = ltyp == tid
-            for j in range(kk):
+            for j in range(PAIR_NCON[key]):
                 msk = is_t & (lsub == j)
                 dist = torch.where(msk, dd[:, j], dist)
                 pos = torch.where(msk[:, None], pp[:, j], pos)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from flybody_tpu_torch.math import bquat as bq
-from flybody_tpu_torch.physics import types as T
+from flybody_tpu_torch.physics.kinematics import joint_plan
 from flybody_tpu_torch.physics.types import Data, Model
 
 # Default per-condim cap on simultaneously active contacts (static island
@@ -71,9 +71,8 @@ class EfcMeta:
 
 
 def _efc_meta(m: Model) -> EfcMeta:
-    jl = np.asarray(m.jnt_limited, dtype=bool)
-    jt = np.asarray(m.jnt_type)
-    ids = np.nonzero(jl & ((jt == T.HINGE) | (jt == T.SLIDE)))[0]
+    scalar = joint_plan(m).scalar[0]
+    ids = scalar[np.asarray(m.jnt_limited, dtype=bool)[scalar]]
     con_dim = np.asarray(m.con_dim)
     sel = dict(m.con_sel) if m.con_sel else {}
     groups = []
@@ -160,8 +159,7 @@ def _contact_groups(m: Model, d: Data, meta: EfcMeta) -> list[ConGroup]:
     con = d.contact
     maskd = m.const(np.asarray(m.body_dof_mask, np.float64))  # (nbody, nv)
 
-    root_of_dof = np.asarray(m.body_rootid)[np.asarray(m.dof_bodyid)]
-    comroot = d.subtree_com[m.ix(root_of_dof)]   # (nv, 3, B)
+    comroot = d.subtree_com[joint_plan(m).dof_root]   # (nv, 3, B)
     ang = d.cdof[:, :3]                          # (nv, 3, B)
     base = d.cdof[:, 3:] - bq.cross(ang, comroot)
 

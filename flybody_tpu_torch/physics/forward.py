@@ -7,7 +7,6 @@ mj_forward / mj_Euler.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from flybody_tpu_torch.math import bquat as bq
@@ -20,7 +19,6 @@ from flybody_tpu_torch.physics import kinematics as K
 from flybody_tpu_torch.physics import passive as P
 from flybody_tpu_torch.physics import sensors as sens
 from flybody_tpu_torch.physics import smooth as S
-from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.types import Data, Model
 from flybody_tpu_torch.utils import telemetry as tm
 
@@ -88,24 +86,16 @@ def forward(m: Model, d: Data, col_update: bool = False) -> Data:
 def _integrate_qpos(m: Model, qpos, qvel, h):
     """Position integration respecting quaternion manifolds (batched)."""
     out = qpos.clone()
-    jt = np.asarray(m.jnt_type)
-    qadr = np.asarray(m.jnt_qposadr)
-    dadr = np.asarray(m.jnt_dofadr)
-    sj = np.nonzero((jt == T.HINGE) | (jt == T.SLIDE))[0]
+    j = K.joint_plan(m)
+    sj, qadr, dadr = j.scalar
     if len(sj):
-        out.index_add_(0, m.ix(qadr[sj]), h * qvel[m.ix(dadr[sj])])
-    ball = np.nonzero(jt == T.BALL)[0]
-    if len(ball):
-        qidx = m.ix(qadr[ball][:, None] + np.arange(4))
-        widx = m.ix(dadr[ball][:, None] + np.arange(3))
+        out.index_add_(0, qadr, h * qvel[dadr])
+    if j.ball is not None:
+        qidx, widx = j.ball
         out[qidx] = bq.integrate(qpos[qidx], qvel[widx], h)
-    free = np.nonzero(jt == T.FREE)[0]
-    if len(free):
-        pidx = m.ix(qadr[free][:, None] + np.arange(3))
-        vidx = m.ix(dadr[free][:, None] + np.arange(3))
+    if j.free is not None:
+        pidx, vidx, qidx, widx = j.free
         out[pidx] = out[pidx] + h * qvel[vidx]
-        qidx = m.ix(qadr[free][:, None] + np.arange(3, 7))
-        widx = m.ix(dadr[free][:, None] + np.arange(3, 6))
         out[qidx] = bq.integrate(qpos[qidx], qvel[widx], h)
     return out
 
@@ -114,12 +104,11 @@ def _integrate_act(m: Model, d: Data, h):
     if m.na == 0:
         return d.act
     act = d.act + h * d.act_dot
-    dyn = np.asarray(m.actuator_dyntype)
-    fe = np.nonzero(dyn == T.DYN_FILTEREXACT)[0]
-    if len(fe):
-        a = m.ix(np.asarray(m.actuator_actadr)[fe])
-        tau = torch.clamp(m.actuator_dynprm[m.ix(fe), 0], min=1e-12)[:, None]
-        ctrl = A.clamp_ctrl(m, d.ctrl)[m.ix(fe)]
+    fe = A.actuator_plan(m).filterexact
+    if fe is not None:
+        ids, a = fe
+        tau = torch.clamp(m.actuator_dynprm[ids, 0], min=1e-12)[:, None]
+        ctrl = A.clamp_ctrl(m, d.ctrl)[ids]
         act[a] = d.act[a] + (ctrl - d.act[a]) * (1.0 - torch.exp(-h / tau))
     return act
 

@@ -8,6 +8,8 @@ mj_kinematics / mj_comPos / mj_tendon for free/ball/slide/hinge joints.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -16,49 +18,94 @@ from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.types import Data, Model
 
 
-def kinematics(m: Model, d: Data) -> Data:
-    """mj_kinematics: body/geom/site frames from qpos."""
-    B = d.qpos.shape[-1]
-    nb = m.nbody
-    jnt_type = np.asarray(m.jnt_type)
-    jnt_qposadr = np.asarray(m.jnt_qposadr)
-    parent = np.asarray(m.body_parentid)
+def joint_plan(m: Model) -> SimpleNamespace:
+    """The model's joints by type, built once: ``scalar`` (hinge and slide)
+    as (joint ids (numpy), qpos addresses, dof addresses), ``ball`` as
+    (qpos quaternion, dof) blocks and ``free`` as (position, dof,
+    quaternion, dof) blocks of index tensors, None if the model has none;
+    ``dof_root``, each dof's com root body."""
+    def build(m):
+        jt = np.asarray(m.jnt_type)
+        qadr, dadr = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
+        sj = np.flatnonzero((jt == T.HINGE) | (jt == T.SLIDE))
+        ball, free = np.flatnonzero(jt == T.BALL), np.flatnonzero(jt == T.FREE)
+        block = lambda adr, a, b: m.ix(adr[:, None] + np.arange(a, b))
+        return SimpleNamespace(
+            dof_root=m.ix(np.asarray(m.body_rootid)[m.dof_bodyid]),
+            scalar=(sj, m.ix(qadr[sj]), m.ix(dadr[sj])),
+            ball=(block(qadr[ball], 0, 4), block(dadr[ball], 0, 3))
+            if len(ball) else None,
+            free=(block(qadr[free], 0, 3), block(dadr[free], 0, 3),
+                  block(qadr[free], 3, 7), block(dadr[free], 3, 6))
+            if len(free) else None)
+    return m.plan("joints", build)
 
-    xpos = d.qpos.new_zeros((nb, 3, B))
-    xquat = d.qpos.new_zeros((nb, 4, B))
-    xquat[:, 0] = 1.0
-    anchors, axes, jids_all, valid_all = [], [], [], []
 
+def _kinematics_plan(m: Model):
+    """Per tree level (bodies, parents, joint slots), each joint slot's
+    index tensors and (L, 1, 1) masks (None where no body of the level
+    has such a joint in that slot), and the (rows, joint ids) scatter of
+    the slots' anchors and axes."""
+    jnt_type, jnt_qposadr = np.asarray(m.jnt_type), np.asarray(m.jnt_qposadr)
+    on = lambda mask, v: v if mask.any() else None
+    c = lambda mask: m.const(mask)[:, None, None]
+    levels, jids_all, valid_all = [], [], []
     for level in m.body_tree:
         lev = np.asarray(level)
-        L = len(lev)
-        pid = m.ix(parent[lev])
-        p_pos, p_quat = xpos[pid], xquat[pid]
-        pos = p_pos + bq.rotate(m.body_pos[m.ix(lev)][..., None], p_quat)
-        quat = bq.mult(p_quat, m.body_quat[m.ix(lev)][..., None])
-
         jntnum = np.asarray(m.body_jntnum)[lev]
         jntadr = np.asarray(m.body_jntadr)[lev]
-        max_slots = int(jntnum.max()) if L else 0
-        for slot in range(max_slots):
+        slots = []
+        for slot in range(int(jntnum.max()) if len(lev) else 0):
             has = jntnum > slot
             jid = np.where(has, jntadr + slot, 0)  # 0 = safe pad
             jt = np.where(has, jnt_type[jid], -1)
             qadr = jnt_qposadr[jid]
+            free, ball, slide = jt == T.FREE, jt == T.BALL, jt == T.SLIDE
+            rot = ball | (jt == T.HINGE)
+            blk = lambda a, b: m.ix(np.minimum(qadr[:, None]
+                                               + np.arange(a, b), m.nq - 1))
+            slots.append(SimpleNamespace(
+                jid=m.ix(jid), qadr=m.ix(qadr),
+                free=on(free, (blk(0, 3), blk(3, 7), c(free))),
+                joint=on(rot | slide, c(rot | slide)),
+                slide=on(slide, c(slide)),
+                rot=on(rot, (blk(0, 4), c(ball), c(rot)))))
+            jids_all.append(jid)
+            valid_all.append(has & (jt >= 0))
+        levels.append((m.ix(lev), m.ix(np.asarray(m.body_parentid)[lev]),
+                       tuple(slots)))
+    scatter = None
+    if jids_all:
+        jcat = np.concatenate(jids_all)
+        vcat = np.concatenate(valid_all)
+        scatter = (m.ix(np.flatnonzero(vcat)), m.ix(jcat[vcat]))
+    return tuple(levels), scatter
 
-            is_free = jt == T.FREE
-            is_ball = jt == T.BALL
-            is_slide = jt == T.SLIDE
-            is_hinge = jt == T.HINGE
-            any_rot = is_ball | is_hinge
 
+def kinematics(m: Model, d: Data) -> Data:
+    """mj_kinematics: body/geom/site frames from qpos."""
+    B = d.qpos.shape[-1]
+    nb = m.nbody
+    levels, scatter = m.plan("kinematics", _kinematics_plan)
+
+    xpos = d.qpos.new_zeros((nb, 3, B))
+    xquat = d.qpos.new_zeros((nb, 4, B))
+    xquat[:, 0] = 1.0
+    anchors, axes = [], []
+
+    for lev, pid, slots in levels:
+        L = lev.shape[0]
+        p_pos, p_quat = xpos[pid], xquat[pid]
+        pos = p_pos + bq.rotate(m.body_pos[lev][..., None], p_quat)
+        quat = bq.mult(p_quat, m.body_quat[lev][..., None])
+
+        for s in slots:
             anchor = d.qpos.new_zeros((L, 3, B))
             axis_w = d.qpos.new_zeros((L, 3, B))
 
-            if is_free.any():
-                q3 = d.qpos[m.ix(qadr[:, None] + np.arange(3))]
-                q4 = d.qpos[m.ix(qadr[:, None] + np.arange(3, 7))]
-                fm = m.const(is_free)[:, None, None]
+            if s.free is not None:
+                q3i, q4i, fm = s.free
+                q3, q4 = d.qpos[q3i], d.qpos[q4i]
                 pos = torch.where(fm, q3, pos)
                 quat = torch.where(fm, q4, quat)
                 anchor = torch.where(fm, q3, anchor)
@@ -66,52 +113,44 @@ def kinematics(m: Model, d: Data) -> Data:
                 zax[:, 2] = 1.0
                 axis_w = torch.where(fm, zax, axis_w)
 
-            if (is_ball | is_slide | is_hinge).any():
-                jpos = m.jnt_pos[m.ix(jid)][..., None]
-                jaxis = m.jnt_axis[m.ix(jid)][..., None]
+            if s.joint is not None:
+                jpos = m.jnt_pos[s.jid][..., None]
+                jaxis = m.jnt_axis[s.jid][..., None]
                 anc = pos + bq.rotate(jpos, quat)
                 axw = bq.rotate(jaxis, quat)
 
-                if is_slide.any():
-                    delta = d.qpos[m.ix(qadr)] - m.qpos0[m.ix(qadr)][:, None]
-                    pos = torch.where(m.const(is_slide)[:, None, None],
-                                      pos + axw * delta[:, None, :], pos)
+                if s.slide is not None:
+                    delta = d.qpos[s.qadr] - m.qpos0[s.qadr][:, None]
+                    pos = torch.where(s.slide, pos + axw * delta[:, None, :],
+                                      pos)
 
-                if any_rot.any():
-                    angle = d.qpos[m.ix(qadr)] - m.qpos0[m.ix(qadr)][:, None]
+                if s.rot is not None:
+                    qb, is_ball, am = s.rot
+                    angle = d.qpos[s.qadr] - m.qpos0[s.qadr][:, None]
                     qloc_h = bq.axis_angle(jaxis, angle)
-                    qloc_b = d.qpos[m.ix(np.minimum(
-                        qadr[:, None] + np.arange(4), m.nq - 1))]
-                    qloc = torch.where(m.const(is_ball)[:, None, None],
-                                       qloc_b, qloc_h)
+                    qloc = torch.where(is_ball, d.qpos[qb], qloc_h)
                     new_quat = bq.mult(quat, qloc)
                     new_pos = anc - bq.rotate(jpos, new_quat)
-                    am = m.const(any_rot)[:, None, None]
                     quat = torch.where(am, new_quat, quat)
                     pos = torch.where(am, new_pos, pos)
 
-                mask = m.const(is_ball | is_slide | is_hinge)[:, None, None]
-                anchor = torch.where(mask, anc, anchor)
-                axis_w = torch.where(mask, axw, axis_w)
+                anchor = torch.where(s.joint, anc, anchor)
+                axis_w = torch.where(s.joint, axw, axis_w)
 
             anchors.append(anchor)
             axes.append(axis_w)
-            jids_all.append(jid)
-            valid_all.append(has & (jt >= 0))
 
         # normalize quats once per level to keep long chains stable
         quat = quat / torch.linalg.vector_norm(quat, dim=-2, keepdim=True)
-        xpos[m.ix(lev)] = pos
-        xquat[m.ix(lev)] = quat
+        xpos[lev] = pos
+        xquat[lev] = quat
 
     xanchor = d.qpos.new_zeros((m.njnt, 3, B))
     xaxis = d.qpos.new_zeros((m.njnt, 3, B))
-    if jids_all:
-        jcat = np.concatenate(jids_all)
-        vcat = np.concatenate(valid_all)
-        sel = m.ix(np.nonzero(vcat)[0])
-        xanchor[m.ix(jcat[vcat])] = torch.cat(anchors, dim=0)[sel]
-        xaxis[m.ix(jcat[vcat])] = torch.cat(axes, dim=0)[sel]
+    if scatter is not None:
+        sel, jids = scatter
+        xanchor[jids] = torch.cat(anchors, dim=0)[sel]
+        xaxis[jids] = torch.cat(axes, dim=0)[sel]
 
     xmat = bq.to_mat(xquat)
     xipos = xpos + bq.rotate(m.body_ipos[..., None], xquat)
@@ -186,8 +225,7 @@ def com_pos(m: Model, d: Data) -> Data:
     jnt_of_dof = np.asarray(m.dof_jntid)
     body_of_dof = np.asarray(m.dof_bodyid)
     jt = np.asarray(m.jnt_type)[jnt_of_dof]
-    root = np.asarray(m.body_rootid)[body_of_dof]
-    com = subtree_com[m.ix(root)]                # (nv, 3, B)
+    com = subtree_com[joint_plan(m).dof_root]    # (nv, 3, B)
     anchor = d.xanchor[m.ix(jnt_of_dof)]
     axis = d.xaxis[m.ix(jnt_of_dof)]
     xmat_b = d.xmat[m.ix(body_of_dof)]           # (nv, 3, 3, B)
@@ -216,8 +254,8 @@ def com_pos(m: Model, d: Data) -> Data:
 
 
 def _tendon_map(m: Model):
-    """Static (segment, wrap entry, joint qposadr, joint dofadr) arrays of
-    the fixed-tendon wrap list."""
+    """Static (segment, coefficient (n, 1), joint qposadr, joint dofadr) of
+    the fixed-tendon wrap list's entries."""
     ten_adr = np.asarray(m.ten_adr)
     ten_num = np.asarray(m.ten_num)
     wrap_jnt = np.asarray(m.wrap_jntid)
@@ -226,15 +264,15 @@ def _tendon_map(m: Model):
                            for t in range(m.ntendon)])
     qadr = np.asarray(m.jnt_qposadr)[wrap_jnt[widx]]
     dadr = np.asarray(m.jnt_dofadr)[wrap_jnt[widx]]
-    return m.ix(seg), m.ix(widx), m.ix(qadr), m.ix(dadr)
+    return (m.ix(seg), m.wrap_coef.reshape(-1)[m.ix(widx)][:, None],
+            m.ix(qadr), m.ix(dadr))
 
 
 def tendon(m: Model, d: Data) -> Data:
     """Fixed tendons: length = sum coef * qpos_joint (static sparse map)."""
     if m.ntendon == 0:
         return d
-    seg, widx, qadr, _ = m.plan("tendon_map", _tendon_map)
-    coefs = m.wrap_coef.reshape(-1)[widx][:, None]
+    seg, coefs, qadr, _ = m.plan("tendon_map", _tendon_map)
     vals = coefs * d.qpos[qadr]
     length = d.qpos.new_zeros((m.ntendon, d.qpos.shape[-1]))
     length.index_add_(0, seg, vals)
@@ -244,8 +282,7 @@ def tendon(m: Model, d: Data) -> Data:
 def ten_moment_apply(m: Model, d: Data, frc: torch.Tensor) -> torch.Tensor:
     """qfrc (nv, B) from per-tendon forces frc (ntendon, B) via the static
     fixed-tendon moment map."""
-    seg, widx, _, dadr = m.plan("tendon_map", _tendon_map)
-    coefs = m.wrap_coef.reshape(-1)[widx][:, None]
+    seg, coefs, _, dadr = m.plan("tendon_map", _tendon_map)
     out = torch.zeros_like(d.qvel)
     out.index_add_(0, dadr, coefs * frc[seg])
     return out
@@ -253,8 +290,7 @@ def ten_moment_apply(m: Model, d: Data, frc: torch.Tensor) -> torch.Tensor:
 
 def ten_velocity_of(m: Model, d: Data) -> torch.Tensor:
     """(ntendon, B) tendon velocities via the static moment map."""
-    seg, widx, _, dadr = m.plan("tendon_map", _tendon_map)
-    coefs = m.wrap_coef.reshape(-1)[widx][:, None]
+    seg, coefs, _, dadr = m.plan("tendon_map", _tendon_map)
     out = d.qvel.new_zeros((m.ntendon, d.qvel.shape[-1]))
     out.index_add_(0, seg, coefs * d.qvel[dadr])
     return out

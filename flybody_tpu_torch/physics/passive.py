@@ -12,7 +12,6 @@ import numpy as np
 import torch
 
 from flybody_tpu_torch.math import bquat as bq
-from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.types import Data, Model
 
 _PI = np.pi
@@ -47,22 +46,27 @@ def body_velocity_local(m: Model, d: Data):
     return bq.matvec_t(d.ximat, ang_w), bq.matvec_t(d.ximat, lin_w)
 
 
-def _inertia_box(m: Model):
-    """Equivalent-box full side lengths from diagonal inertia (nbody, 3)."""
+def _fluid_plan(m: Model):
+    """The inertia-box model's (nbody, 3, 1) box (the full side lengths of
+    the diagonal inertia's equivalent box) and (nbody,) body weights (0
+    for the world and for bodies with an ellipsoid-fluid geom), and the
+    ellipsoid model's (geoms, their bodies, their com roots) index
+    tensors, or None."""
     I = m.body_inertia
     mass = torch.clamp(m.body_mass, min=1e-12)[:, None]
     Ij = torch.stack([I[:, 1] + I[:, 2] - I[:, 0],
                       I[:, 2] + I[:, 0] - I[:, 1],
                       I[:, 0] + I[:, 1] - I[:, 2]], dim=-1)
-    return torch.sqrt(torch.clamp(6.0 * Ij / mass, min=1e-24))
-
-
-def _ellipsoid_body_mask(m: Model) -> np.ndarray:
-    """Static (nbody,) bool: body has at least one ellipsoid-fluid geom."""
-    out = np.zeros(m.nbody, dtype=bool)
+    box = torch.sqrt(torch.clamp(6.0 * Ij / mass, min=1e-24))[..., None]
     active = np.asarray(m.geom_fluid_active)
-    out[np.asarray(m.geom_bodyid)[active]] = True
-    return out
+    gids = np.flatnonzero(active)
+    bids = np.asarray(m.geom_bodyid)[gids]
+    keep = np.ones(m.nbody)
+    keep[bids] = 0.0
+    keep[0] = 0.0
+    return box, m.const(keep), ((m.ix(gids), m.ix(bids),
+                                 m.ix(np.asarray(m.body_rootid)[bids]))
+                                if active.any() else None)
 
 
 def fluid_box(m: Model, d: Data) -> torch.Tensor:
@@ -75,7 +79,7 @@ def fluid_box(m: Model, d: Data) -> torch.Tensor:
     wind_l = bq.matvec_t(d.ximat, wind[None, :, None].expand(d.xipos.shape))
     lin_l = lin_l - wind_l
 
-    box = _inertia_box(m)[..., None]  # (nbody, 3, 1)
+    box, keep, _ = m.plan("fluid", _fluid_plan)
     rho, beta = m.opt.density, m.opt.viscosity
     b0, b1, b2 = box[:, 0], box[:, 1], box[:, 2]  # (nbody, 1)
     area = torch.stack([b1 * b2, b0 * b2, b0 * b1], dim=-2)
@@ -95,9 +99,7 @@ def fluid_box(m: Model, d: Data) -> torch.Tensor:
     offset = d.xipos - d.subtree_com[m.ix(m.body_rootid)]
     trq_o = trq_w + bq.cross(offset, frc_w)
     out = torch.cat([trq_o, frc_w], dim=-2)   # (nbody, 6, B)
-    keep = ~_ellipsoid_body_mask(m)
-    keep[0] = False
-    return out * m.const(keep.astype(np.float64))[:, None, None]
+    return out * keep[:, None, None]
 
 
 def fluid_ellipsoid(m: Model, d: Data) -> torch.Tensor:
@@ -109,15 +111,12 @@ def fluid_ellipsoid(m: Model, d: Data) -> torch.Tensor:
     Magnus force and the added-mass gyroscopic terms."""
     dtype = d.qpos.dtype
     B = d.qpos.shape[-1]
-    active = np.asarray(m.geom_fluid_active)
-    if not active.any():
+    _, _, geoms = m.plan("fluid", _fluid_plan)
+    if geoms is None:
         return d.qpos.new_zeros((m.nbody, 6, B))
-    gids = np.nonzero(active)[0]
-    bids = np.asarray(m.geom_bodyid)[gids]
-    root = np.asarray(m.body_rootid)[bids]
-    g_ix, b_ix = m.ix(gids), m.ix(bids)
+    g_ix, b_ix, root = geoms
 
-    offset = d.geom_xpos[g_ix] - d.subtree_com[m.ix(root)]
+    offset = d.geom_xpos[g_ix] - d.subtree_com[root]
     ang_w = d.cvel[b_ix, :3]
     lin_w = d.cvel[b_ix, 3:] + bq.cross(ang_w, offset)
     R = d.geom_xmat[g_ix]                      # (g, 3, 3, B)
@@ -183,12 +182,10 @@ def fluid_ellipsoid(m: Model, d: Data) -> torch.Tensor:
 
 def passive(m: Model, d: Data) -> Data:
     """mj_passive: springs + dampers + fluid -> qfrc_passive."""
+    from flybody_tpu_torch.physics import kinematics as K
     qfrc = torch.zeros_like(d.qvel)
-    jt = np.asarray(m.jnt_type)
-    scalar = np.nonzero((jt == T.HINGE) | (jt == T.SLIDE))[0]
+    scalar, qadr, dadr = K.joint_plan(m).scalar
     if len(scalar):
-        qadr = m.ix(np.asarray(m.jnt_qposadr)[scalar])
-        dadr = m.ix(np.asarray(m.jnt_dofadr)[scalar])
         stiff = m.jnt_stiffness[m.ix(scalar)][:, None]
         qfrc.index_add_(0, dadr,
                         -stiff * (d.qpos[qadr] - m.qpos_spring[qadr][:, None]))
@@ -196,7 +193,6 @@ def passive(m: Model, d: Data) -> Data:
     qfrc = qfrc - m.dof_damping[:, None] * d.qvel
 
     if m.ntendon:
-        from flybody_tpu_torch.physics import kinematics as K
         lo = m.ten_lengthspring[:, 0:1]
         hi = m.ten_lengthspring[:, 1:2]
         zero = torch.zeros_like(d.ten_length)

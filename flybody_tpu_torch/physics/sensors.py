@@ -15,6 +15,7 @@ from flybody_tpu_torch.math import bquat as bq
 from flybody_tpu_torch.ops import rows
 from flybody_tpu_torch.physics import smooth as S
 from flybody_tpu_torch.physics import types as T
+from flybody_tpu_torch.physics.collision import slot_layout
 from flybody_tpu_torch.physics.types import Data, Model
 
 
@@ -38,25 +39,18 @@ def _contact_body_forces(m: Model, d: Data) -> torch.Tensor:
             - rows.add_rows(w1, con.b1, m.nbody))
 
 
-def _subtree_pairs(m: Model):
-    """Static (ancestor_body, descendant_body) pairs (incl. self)."""
+def _subtree_matrix(m: Model):
+    """Static (nbody, nbody) 0/1 matrix: [a, b] = 1 where a is b or an
+    ancestor of b."""
     par = np.asarray(m.body_parentid)
-    anc_l, desc_l = [], []
+    A = np.zeros((m.nbody, m.nbody))
     for b in range(m.nbody):
         cur = b
         while True:
-            anc_l.append(cur)
-            desc_l.append(b)
+            A[cur, b] = 1.0
             if cur == 0:
                 break
             cur = par[cur]
-    return np.asarray(anc_l, np.int64), np.asarray(desc_l, np.int64)
-
-
-def _subtree_matrix(m: Model):
-    anc, desc = _subtree_pairs(m)
-    A = np.zeros((m.nbody, m.nbody))
-    A[anc, desc] = 1.0
     return m.const(A)
 
 
@@ -91,32 +85,44 @@ def _spatial_at_point(vec6, origin, point):
     return ang, lin
 
 
+_NEED_ACC = (T.SENS_ACCELEROMETER, T.SENS_FORCE, T.SENS_TORQUE)
+_SITE_FRAME = (T.SENS_GYRO, T.SENS_VELOCIMETER) + _NEED_ACC
+
+
+def _sensor_plan(m: Model):
+    """Per sensor (type, object id, address, object type, its site's body
+    and that body's com root, a touch sensor's analytic contact slots or
+    None); whether any sensor needs the post-constraint accelerations."""
+    lay = slot_layout(m) if m.ncon_max else None
+    out = []
+    for st, oid, a, ot in zip(*(np.asarray(x).tolist() for x in (
+            m.sensor_type, m.sensor_objid, m.sensor_adr, m.sensor_objtype))):
+        b = (int(m.site_bodyid[oid])
+             if st in _SITE_FRAME + (T.SENS_TOUCH,) else 0)
+        on = (np.flatnonzero((lay.b1 == b) | (lay.b2 == b))
+              if st == T.SENS_TOUCH and lay is not None else [])
+        out.append((st, oid, a, ot, b, int(m.body_rootid[b]),
+                    m.ix(on) if len(on) else None))
+    return tuple(out), any(st in _NEED_ACC for st, *_ in out)
+
+
 def sensor(m: Model, d: Data) -> Data:
     """Evaluate all sensors into sensordata (nsensordata, B)."""
     if m.nsensor == 0:
         return d
     B = d.qpos.shape[-1]
     filled: dict = {}
-    types = np.asarray(m.sensor_type)
-    objid = np.asarray(m.sensor_objid)
-    adr = np.asarray(m.sensor_adr)
-    need_acc = np.any((types == T.SENS_ACCELEROMETER)
-                      | (types == T.SENS_FORCE) | (types == T.SENS_TORQUE))
+    plan, need_acc = m.plan("sensors", _sensor_plan)
     cacc = cfrc_int = None
     if need_acc:
         cacc, cfrc_int = rne_postconstraint(m, d)
-    root = np.asarray(m.body_rootid)
-    site_body = np.asarray(m.site_bodyid)
 
     def put(a, val):
         filled[a] = val if val.ndim == 2 else val[None]
 
-    for i in range(m.nsensor):
-        st, oid, a = int(types[i]), int(objid[i]), int(adr[i])
-        if st in (T.SENS_GYRO, T.SENS_VELOCIMETER, T.SENS_ACCELEROMETER,
-                  T.SENS_FORCE, T.SENS_TORQUE):
-            b = int(site_body[oid])
-            com = d.subtree_com[int(root[b])]
+    for st, oid, a, objtype, b, com_b, touch in plan:
+        if st in _SITE_FRAME:
+            com = d.subtree_com[com_b]
             p = d.site_xpos[oid]
             R = d.site_xmat[oid]
             ang_w, lin_w = _spatial_at_point(d.cvel[b], com, p)
@@ -133,24 +139,18 @@ def sensor(m: Model, d: Data) -> Data:
                 trq = cfrc_int[b, :3] - bq.cross(p - com, cfrc_int[b, 3:])
                 put(a, bq.matvec_t(R, trq))
         elif st == T.SENS_TOUCH:
-            b = int(site_body[oid])
             val = d.qpos.new_zeros((B,))
-            if m.ncon_max:
-                from flybody_tpu_torch.physics.actuation import slot_bodies
-                b1s, b2s = slot_bodies(m)
-                on = np.nonzero((b1s == b) | (b2s == b))[0]
-                if len(on):
-                    mask = selected_in(d.warm_sel, m.ix(on)).to(d.qpos.dtype)
-                    val = torch.sum(d.warm_f[:, 0] * mask, dim=0)
+            if touch is not None:
+                mask = torch.isin(d.warm_sel.long(), touch).to(d.qpos.dtype)
+                val = torch.sum(d.warm_f[:, 0] * mask, dim=0)
             put(a, torch.clamp(val, min=0.0))
         elif st == T.SENS_JOINTPOS:
-            put(a, d.qpos[int(np.asarray(m.jnt_qposadr)[oid])])
+            put(a, d.qpos[int(m.jnt_qposadr[oid])])
         elif st == T.SENS_JOINTVEL:
-            put(a, d.qvel[int(np.asarray(m.jnt_dofadr)[oid])])
+            put(a, d.qvel[int(m.jnt_dofadr[oid])])
         elif st == T.SENS_ACTUATORFRC:
             put(a, d.actuator_force[oid])
         elif st in (T.SENS_FRAMEPOS, T.SENS_FRAMEQUAT, T.SENS_FRAMEZAXIS):
-            objtype = int(np.asarray(m.sensor_objtype)[i])
             if objtype == 6:       # mjOBJ_SITE
                 pos, mat = d.site_xpos[oid], d.site_xmat[oid]
             elif objtype == 5:     # mjOBJ_GEOM
@@ -166,7 +166,7 @@ def sensor(m: Model, d: Data) -> Data:
         elif st == T.SENS_SUBTREECOM:
             put(a, d.subtree_com[oid])
         elif st == T.SENS_SUBTREELINVEL:
-            off = d.xipos - d.subtree_com[m.ix(root)]
+            off = d.xipos - d.subtree_com[m.ix(m.body_rootid)]
             vcom = d.cvel[:, 3:] + bq.cross(d.cvel[:, :3], off)
             mom = m.body_mass[:, None, None] * vcom
             acc = subtree_sum(m, mom)
@@ -179,8 +179,3 @@ def sensor(m: Model, d: Data) -> Data:
     for a, val in filled.items():
         out[a:a + val.shape[0]] = val
     return d.replace(sensordata=out)
-
-
-def selected_in(sel: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    """(Ksum, B) bool: the selected slot id is in the static ``slots``."""
-    return torch.isin(sel.long(), slots)

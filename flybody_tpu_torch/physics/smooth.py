@@ -18,6 +18,7 @@ import torch
 from flybody_tpu_torch.math import bquat as bq
 from flybody_tpu_torch.ops import tree_ldl as TL
 from flybody_tpu_torch.physics import types as T
+from flybody_tpu_torch.physics.actuation import actuator_plan
 from flybody_tpu_torch.physics.types import Data, Model
 
 
@@ -37,12 +38,13 @@ def force_cross(v, f):
     return torch.cat([ang, lin], dim=-2)
 
 
-def _dof_velpre_pairs(m: Model):
-    """Static (i, j) dof pairs: dof j's velocity is part of the partial
-    body velocity seen by dof i when forming cdof_dot[i] (the sequential
-    mj_comVel semantics): dofs of strict body ancestors, dofs of earlier
-    joints on the same body, and for the rotational dofs of a free joint
-    the translational dofs of that joint."""
+def _velpre_plan(m: Model):
+    """Static (nv, nv) 0/1 matrix of the (i, j) dof pairs where dof j's
+    velocity is part of the partial body velocity seen by dof i when
+    forming cdof_dot[i] (the sequential mj_comVel semantics): dofs of
+    strict body ancestors, dofs of earlier joints on the same body, and
+    for the rotational dofs of a free joint the translational dofs of
+    that joint; and the (nv,) mask of the dofs i with any such j."""
     jnt_type = np.asarray(m.jnt_type)
     jnt_dofadr = np.asarray(m.jnt_dofadr)
     body_parent = np.asarray(m.body_parentid)
@@ -77,11 +79,7 @@ def _dof_velpre_pairs(m: Model):
                     for jd in seen:
                         ii.append(i); jj.append(jd)
             seen = seen + dofs
-    return np.asarray(ii, np.int32), np.asarray(jj, np.int32)
-
-
-def _velpre_plan(m: Model):
-    ii, jj = _dof_velpre_pairs(m)
+    ii, jj = np.asarray(ii, np.int32), np.asarray(jj, np.int32)
     P = np.zeros((m.nv, m.nv))
     P[ii, jj] = 1.0
     has_pre = np.zeros(m.nv, dtype=bool)
@@ -165,30 +163,23 @@ def transmission(m: Model, d: Data) -> Data:
     B = d.qpos.shape[-1]
     length = d.qpos.new_zeros((m.nu, B))
     velocity = d.qpos.new_zeros((m.nu, B))
-    trntype = np.asarray(m.actuator_trntype)
-    trnid = np.asarray(m.actuator_trnid)[:, 0]
+    p = actuator_plan(m)
     gear0 = m.actuator_gear[:, 0]
-    jnt_qposadr = np.asarray(m.jnt_qposadr)
-    jnt_dofadr = np.asarray(m.jnt_dofadr)
 
-    jnt_mask = trntype == T.TRN_JOINT
-    if jnt_mask.any():
-        ids = np.nonzero(jnt_mask)[0]
-        jids = trnid[ids]
-        g = gear0[m.ix(ids)][:, None]
-        length[m.ix(ids)] = d.qpos[m.ix(jnt_qposadr[jids])] * g
-        velocity[m.ix(ids)] = d.qvel[m.ix(jnt_dofadr[jids])] * g
+    if p.joint is not None:
+        ids, qadr, dadr = p.joint
+        g = gear0[ids][:, None]
+        length[ids] = d.qpos[qadr] * g
+        velocity[ids] = d.qvel[dadr] * g
 
     ten_velocity = d.ten_velocity
-    ten_mask = trntype == T.TRN_TENDON
-    if ten_mask.any():
+    if p.tendon is not None:
         from flybody_tpu_torch.physics import kinematics as K
         ten_velocity = K.ten_velocity_of(m, d)
-        ids = np.nonzero(ten_mask)[0]
-        tids = m.ix(trnid[ids])
-        g = gear0[m.ix(ids)][:, None]
-        length[m.ix(ids)] = d.ten_length[tids] * g
-        velocity[m.ix(ids)] = ten_velocity[tids] * g
+        ids, tids = p.tendon
+        g = gear0[ids][:, None]
+        length[ids] = d.ten_length[tids] * g
+        velocity[ids] = ten_velocity[tids] * g
 
     return d.replace(actuator_length=length, actuator_velocity=velocity,
                      ten_velocity=ten_velocity)

@@ -28,6 +28,7 @@ import torch
 from flybody_tpu_torch.math import bquat as bq
 from flybody_tpu_torch.ops import rows
 from flybody_tpu_torch.ops import solver_kernels as SK
+from flybody_tpu_torch.physics.kinematics import joint_plan
 from flybody_tpu_torch.physics.types import Data, Model
 
 
@@ -60,8 +61,7 @@ def fused_layout(m: Model, meta) -> dict:
 def dof_basis(m: Model, d: Data) -> torch.Tensor:
     """D6 (nv, 6, B): [base (3), ang (3)] with base = lin - ang x comroot,
     so that J[r, v] = u6_r . D6_v on the dof-support mask."""
-    root_of_dof = np.asarray(m.body_rootid)[np.asarray(m.dof_bodyid)]
-    comroot = d.subtree_com[m.ix(root_of_dof)]
+    comroot = d.subtree_com[joint_plan(m).dof_root]
     ang = d.cdof[:, :3]
     lin = d.cdof[:, 3:]
     return torch.cat([lin - bq.cross(ang, comroot), ang], dim=-2)

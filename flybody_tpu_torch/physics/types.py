@@ -301,7 +301,7 @@ class Model(_Tensors):
             self._cache[key] = t
         return t
 
-    def plan(self, name: str, build):
+    def plan(self, name, build):
         """Cached static plan ``build(self)`` (built once per model)."""
         key = ("plan", name)
         p = self._cache.get(key)
@@ -406,7 +406,8 @@ class Data(_Tensors):
     sensordata: torch.Tensor
 
 
-# Fields that constitute the true dynamical state (everything else is
-# recomputed by forward()); env auto-reset swaps only these.
+# The dynamical state that env auto-reset swaps. forward() recomputes the
+# rest except the warm starts apgd_v, ccd_warm_id and ccd_warm_u, which
+# carry over an auto-reset, as in the JAX package.
 STATE_FIELDS = ("qpos", "qvel", "act", "ctrl", "qfrc_applied",
                 "xfrc_applied", "time", "warm_sel", "warm_f", "warm_lim")

@@ -29,7 +29,7 @@ from flybody_tpu_torch.io.trajectories import (TrajectoryDataset,
                                                load_hdf5_walking,
                                                synthetic_walking_dataset)
 from flybody_tpu_torch.math import quaternions as mq
-from flybody_tpu_torch.physics import types as T
+from flybody_tpu_torch.physics.kinematics import joint_plan
 from flybody_tpu_torch.physics.types import Data, Model
 from flybody_tpu_torch.tasks import constants as C
 from flybody_tpu_torch.tasks import rewards as rw
@@ -110,8 +110,7 @@ class WalkImitation(Task):
         self.dataset = dataset.to(model.device, model.dtype)
         # mocap joints: the fly's scalar joints in model order (the
         # datasets follow the same order); sites: the claws
-        jt = np.asarray(model.jnt_type)
-        self.mocap_joints = np.nonzero((jt == T.HINGE) | (jt == T.SLIDE))[0]
+        self.mocap_joints = joint_plan(model).scalar[0]
         self.joint_qposadr = np.asarray(model.jnt_qposadr)[self.mocap_joints]
         self.joint_dofadr = np.asarray(model.jnt_dofadr)[self.mocap_joints]
         self.mocap_sites = np.asarray(walker.claw_sites, dtype=np.int64)
@@ -242,8 +241,7 @@ def make_walk_imitation(device, dtype=torch.float32,
     if ref_path is not None:
         dataset = load_hdf5_walking(ref_path)
     else:
-        jt = np.asarray(model.jnt_type)
-        n_joints = int(((jt == T.HINGE) | (jt == T.SLIDE)).sum())
+        n_joints = len(joint_plan(model).scalar[0])
         qpos0 = np.zeros(7 + n_joints, np.float32)
         qpos0[2] = 0.1278
         qpos0[3] = 1.0

@@ -164,7 +164,7 @@ def lower_onto(pm, qpos, other=None, depth=0.002):
     plane or the heightfield), among the rat's geoms of type ``other``
     (any by default), lies ``depth`` deep."""
     qpos = qpos.clone()
-    g1, g2 = COL._slot_identity(pm)[:2]
+    g1, g2 = COL.slot_layout(pm).g1, COL.slot_layout(pm).g2
     gt = np.asarray(pm.geom_type)
     ground = (gt[g1] == T.GEOM_PLANE) | (gt[g1] == T.GEOM_HFIELD)
     slots = np.nonzero(ground & ((gt[g2] == other) if other is not None
@@ -203,7 +203,7 @@ def test_box_pairs_on_the_rats_head():
     qpos[7:] += _t(0.05 * np.random.RandomState(3).randn(pm.nq - 7, 2))
     d = F.fwd_position(pm, io_mj.make_data(pm, 2).replace(
         qpos=head_down(pm, qpos)))
-    groups, _ = COL._pair_groups(pm)
+    groups = COL.slot_layout(pm).groups
     g1s, g2s = np.asarray(pm.pair_geom1), np.asarray(pm.pair_geom2)
     seen = {}
     for (t1, t2), idx in groups.items():
