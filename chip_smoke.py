@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+Every launch count below is read from a CUDA-activity trace of the
+counted steps (torch.profiler), by kernel name: the kernels that a
+replayed CUDA graph of the substeps (envs/substeps.py) runs count one by
+one, as they ran on the card, and the timed steps run under that trace.
+
 Phases (each prints its lines; any failure exits non-zero):
   1. device   the card's name and power limit (nvidia-smi)
   2. build    every CUDA source of flybody_tpu_torch/csrc with nvcc, one
@@ -210,7 +215,8 @@ Phases (each prints its lines; any failure exits non-zero):
               humanoid's tree, timed with and without its loop; (e)
               inverse kinematics (autograd through the kinematics) of the
               rat's sites at clip 0's 120 frames from joints perturbed by
-              a seeded 0.1 rad: 20 iterations card vs CPU, the site error
+              a seeded 0.1 rad: 20 iterations card vs CPU (no hand
+              kernel launched), the site error
               falling over 200 iterations, the ms per iteration; (f)
               DMPOTrainer with configs/train_config_rodent_imitation.yaml's
               intention networks (parsed by train_dmpo) at its 168 envs,
@@ -292,6 +298,7 @@ Phases (each prints its lines; any failure exits non-zero):
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -1145,6 +1152,11 @@ def main() -> int:
     from flybody_tpu_torch.fly_envs import (flight_imitation, template_task,
                                             vision_guided_flight,
                                             walk_imitation, walk_on_ball)
+    from torch.profiler import ProfilerActivity, profile
+    from flybody_tpu_torch.envs import substeps
+    from flybody_tpu_torch.profile_step import (device_rows, hand_kernels,
+                                                hand_launches, launch_trace)
+    from flybody_tpu_torch.utils import telemetry as tm
     from flybody_tpu_torch.ops import admm_kernel as AK
     from flybody_tpu_torch.ops import ccd_kernel as CK
     from flybody_tpu_torch.ops import kinematics_kernel as KK
@@ -1176,14 +1188,30 @@ def main() -> int:
                 "upsolve_yd": SK.upsolve_yd,
                 "admm_iterate": AK.admm_iterate}
 
+    # the running trace of zero_counts(), and the hand kernels' launches
+    # that counts() last read: by wrapper ("traced") and by device name
+    trace, traced, traced_names = [], {}, {}
+
     def zero_counts():
-        for w in wrappers.values():
-            w.launches = 0
-        CK.narrowphase.launches = 0
-        KK.kinematics.launches = 0
+        """Start counting launches: a launch trace until ``counts``."""
+        if trace:
+            trace.pop()[0].close()
+        stack = contextlib.ExitStack()
+        trace.append((stack, stack.enter_context(launch_trace())))
 
     def counts() -> dict:
-        return {k: w.launches for k, w in wrappers.items()}
+        """Each solver kernel's launches on the card since ``zero_counts``
+        (``traced`` gains ccd_narrowphase and kinematics), from the
+        trace."""
+        if trace:
+            stack, p = trace.pop()
+            stack.close()
+            traced.clear()
+            traced.update(hand_launches(p))
+            traced_names.clear()
+            traced_names.update(hand_kernels(p))
+            tm.clear()
+        return {k: traced[k] for k in wrappers}
 
     def with_solver(model, solver):
         return model.replace(opt=model.opt.replace(contact_solver=solver))
@@ -1233,8 +1261,8 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launched = counts()
-    ccd_launched = CK.narrowphase.launches
-    kin_launched = KK.kinematics.launches
+    ccd_launched = traced["ccd_narrowphase"]
+    kin_launched = traced["kinematics"]
     sps = B * STEPS / dt
     print(f"main: walk_on_ball B={B} reset {reset_s:.3f} s, {STEPS} "
           f"control steps in {dt:.3f} s = {sps:.1f} env-steps/s "
@@ -1416,8 +1444,14 @@ def main() -> int:
 
     # the convex narrowphase on one more control step from the main path's
     # final state: every class, fresh and update substeps, and the reset
-    with CcdCalls(CK) as ccd_calls:
-        env.autoreset_step(state, mid)
+    # (the step's substeps eager: a graph's replay calls no wrapper)
+    engages = substeps.engages
+    substeps.engages = lambda model, data: False
+    try:
+        with CcdCalls(CK) as ccd_calls:
+            env.autoreset_step(state, mid)
+    finally:
+        substeps.engages = engages
     n_cls = len(m.ccd_classes)
     if len(ccd_calls) != n_cls * (env.n_substeps + 1):
         fail(f"ccd: {len(ccd_calls)} narrowphase calls in a control step")
@@ -1833,16 +1867,16 @@ def main() -> int:
     env_i = walk_imitation()
     mi = env_i.model
     state_i, launched_i, _ = env_phase("imitation", env_i, IMIT_STEPS)
-    kin_gate("imitation", KK.kinematics.launches, IMIT_STEPS,
+    kin_gate("imitation", traced["kinematics"], IMIT_STEPS,
              env_i.n_substeps)
+    kin_launched_i = traced["kinematics"]
     hk = hold_kin("imitation", KK, K, mi, state_i.data)
     rows["kinematics"] = kernel_row(
         "kinematics", "kinematics.cu",
         "flybody_tpu_torch/physics/kinematics.py::kinematics (plain jnp in "
         "the JAX package)", kin_launched, hk["err"], hk["ms"],
         hk["plain_ms"], hk["flops"], hk["bytes"])
-    rows["kinematics"]["launches_imitation"] = (
-        IMIT_STEPS * (env_i.n_substeps + 1))
+    rows["kinematics"]["launches_imitation"] = kin_launched_i
     # the floor in contact: selected contacts with the floor geom on one
     # side (in a plane pair the floor is geom 1) that penetrate, and those
     # of them among the fused solver's cones
@@ -2189,22 +2223,19 @@ def main() -> int:
     tr_c = MultiTaskDMPOTrainer(
         {"walk_on_ball": env, "walk_imitation": env_i},
         {"walk_on_ball": MULTI_ENVS, "walk_imitation": MULTI_ENVS}, ccfg)
-    per_task = {k: 0 for k in tr_c.names}
     roll_c = {k: [] for k in tr_c.names}
 
-    def counted(name, fn):
+    def timed(name, fn):
         def rollout(*args):
-            n0 = SK.solve_rows.launches
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*args)
             torch.cuda.synchronize()
             roll_c[name].append(time.perf_counter() - t)
-            per_task[name] += SK.solve_rows.launches - n0
             return out
         return rollout
 
-    tr_c.rollout_fns = {k: counted(k, f) for k, f in tr_c.rollout_fns.items()}
+    tr_c.rollout_fns = {k: timed(k, f) for k, f in tr_c.rollout_fns.items()}
     loop_c = tr_c.init(2)
     torch.cuda.synchronize()
     zero_counts()
@@ -2217,6 +2248,12 @@ def main() -> int:
     want_c = {k: AGENT_ITERATIONS * AGENT_UNROLL * tr_c.envs[k].n_substeps
               for k in tr_c.names}
     launched_c = expect("multitask", sum(want_c.values()))
+    # each task's B1 instance: the narrow one at walk_on_ball's R, the
+    # wide one at walk_imitation's
+    per_task = {k: sum(n for name, n in traced_names.items()
+                       if f"solve_rows_kernel<{SK.tile_cpl(R)}>" in name)
+                for k, R in (("walk_on_ball", R_wob),
+                             ("walk_imitation", R_wi))}
     print(f"multitask: solve_rows launches by task {per_task} (expected "
           f"{want_c}) at R {{'walk_on_ball': {R_wob}, 'walk_imitation': "
           f"{R_wi}}}", flush=True)
@@ -2355,11 +2392,12 @@ def main() -> int:
     if env_r.n_substeps != 20:
         fail(f"rodent: {env_r.n_substeps} substeps per control step")
     state_r, launched_r, _ = env_phase("rodent", env_r, RODENT_STEPS)
-    kin_gate("rodent", KK.kinematics.launches, RODENT_STEPS,
+    kin_gate("rodent", traced["kinematics"], RODENT_STEPS,
              env_r.n_substeps)
+    kin_launched_r = traced["kinematics"]
     hk = hold_kin("rodent", KK, K, mr, state_r.data)
     rows["kinematics"].update(
-        launches_rodent=RODENT_STEPS * (env_r.n_substeps + 1),
+        launches_rodent=kin_launched_r,
         max_abs_err_rodent=hk["err"], ms_rodent=hk["ms"],
         plain_ms_rodent=hk["plain_ms"], bound_ms_rodent=hk["bound_ms"])
     rodent_s["two_touch"] = time.perf_counter() - t13
@@ -2652,6 +2690,7 @@ def main() -> int:
           f"site error {err_rel:.3e} (tol {err_bound:.3g})", flush=True)
     if not rel <= ik_bound or not err_rel <= err_bound:
         fail("ik: the card's iterates differ from the CPU's")
+    expect("ik", 0)
     e0 = float(ik(mrat, 0).site_error)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2663,7 +2702,6 @@ def main() -> int:
           f"{IK_HOLD_STEPS} iterations, {e200:.4e} after {IK_STEPS}; "
           f"{ik_ms:.2f} ms per iteration at {n_fr} frames | {smi}",
           flush=True)
-    expect("ik", 0)
     if not e200 < e20 < e0:
         fail("ik: the site error did not fall")
     del res, moved, target, q_start, q_clip
@@ -2774,8 +2812,6 @@ def main() -> int:
 
     mark(14)
     # ---- 15. rodent vision -----------------------------------------------
-    from torch.profiler import ProfilerActivity, profile
-    from flybody_tpu_torch.profile_step import device_rows
     from flybody_tpu_torch.tasks.rodent_tasks import CAMERA_MAX_DIST
     t15 = time.perf_counter()
     # (a) rodent_escape_bowl with the egocentric camera at B envs: the

@@ -4,7 +4,8 @@
     state = env.reset(B)                       # batched EnvState
     state = env.autoreset_step(state, action)  # action (B, act_dim)
 
-* The physics substeps run on the batch-native engine (trailing env axis).
+* The physics substeps run on the batch-native engine (trailing env axis),
+  as one CUDA graph's replay where ``envs/substeps.engages`` admits it.
 * Task hooks are batched functions of the whole batch; observations come
   out batch-leading (B, dim).
 * Auto-reset swaps only the true dynamical state (types.STATE_FIELDS)
@@ -20,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from flybody_tpu_torch.envs import substeps
 from flybody_tpu_torch.physics import forward as F
 from flybody_tpu_torch.physics import io_mj
 from flybody_tpu_torch.physics import types as T
@@ -124,6 +126,7 @@ class FlyEnv:
         self.n_substeps = int(round(task.ctrl_dt / task.phys_dt))
         self.episode_steps = int(round(task.time_limit / task.ctrl_dt))
         self.dtype = dtype
+        self._graphs = substeps.Graphs()
         r = int(model.col_refresh or 1)
         if r > 1 and self.n_substeps % r != 0:
             raise ValueError(
@@ -175,20 +178,16 @@ class FlyEnv:
         with tm.span("env.task"):
             data, task_state = task.before_step(model, state.data,
                                                 state.task_state, action)
-        # selection-persistent collision schedule: substep 0 of each
-        # col_refresh block runs the full selection, the other r-1 refresh
-        # geometry for the same lanes; r divides n_substeps
-        r = int(model.col_refresh or 1)
-        # B1's rows x envs (0 where the fused solve is off)
-        rows = data.sol_f.numel()
-        sensors = []
-        for k in range(self.n_substeps):
-            data = F.step(model, data, col_update=(r > 1 and k % r != 0))
-            sensors.append(data.sensordata)
-            if rows:
-                tm.count("solver.rows", rows)
-                tm.count("solver.rows_used", data.sol_f)
-        sensor_mean = torch.stack(sensors).mean(dim=0)
+        # the substeps: one CUDA graph's replay where it engages, else eager
+        n = self.n_substeps
+        (data, sensor_mean, sol_f), replayed = self._graphs(model, data, n)
+        tm.count("physics.substeps", n)
+        tm.count("physics.graph_substeps", n if replayed else 0)
+        # B1's rows x envs a substep (none where the fused solve is off)
+        for f in sol_f:
+            if f.numel():
+                tm.count("solver.rows", f.numel())
+                tm.count("solver.rows_used", f)
         with tm.span("env.task"):
             data, task_state = task.after_substeps(model, data, task_state)
             draws = {"generator": state.rng} if task.step_draws else {}

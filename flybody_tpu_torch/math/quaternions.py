@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from flybody_tpu_torch.math.consts import literal
+
 _EPS = 1e-12
 
 
@@ -145,7 +147,7 @@ def quat_z2vec(vec: torch.Tensor) -> torch.Tensor:
     x == y == 0 (zero, +z, -z) are degenerate: -z gives 180 degrees about
     x, the others the identity."""
     degenerate = torch.all(vec[..., :2] == 0.0, dim=-1, keepdim=True)
-    ex = vec.new_tensor([1.0, 0.0, 0.0])
+    ex = literal((1.0, 0.0, 0.0), vec.dtype, vec.device)
     # a placeholder direction keeps the math below finite on those rows
     safe_vec = torch.where(degenerate, ex, vec)
     unit = safe_vec / _safe_norm(safe_vec)
@@ -156,9 +158,12 @@ def quat_z2vec(vec: torch.Tensor) -> torch.Tensor:
     quat = torch.cat([torch.cos(angle / 2), torch.sin(angle / 2) * axis],
                      dim=-1)
     neg_z = degenerate & (vec[..., 2:3] < 0)
-    quat = torch.where(degenerate, vec.new_tensor([1.0, 0.0, 0.0, 0.0]),
+    quat = torch.where(degenerate,
+                       literal((1.0, 0.0, 0.0, 0.0), vec.dtype, vec.device),
                        quat)
-    return torch.where(neg_z, vec.new_tensor([0.0, 1.0, 0.0, 0.0]), quat)
+    return torch.where(neg_z,
+                       literal((0.0, 1.0, 0.0, 0.0), vec.dtype, vec.device),
+                       quat)
 
 
 def quat_dist_short_arc(quat1: torch.Tensor,

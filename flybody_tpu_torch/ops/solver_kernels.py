@@ -561,13 +561,15 @@ _mask_cache: dict = {}
 
 def _mask_bits_cached(maskd: torch.Tensor) -> torch.Tensor:
     """``mask_bits`` of a model's constant mask, packed (and checked, one
-    host sync) once per tensor and version."""
+    host sync) once per tensor and version. The bits live as long as the
+    mask: a captured CUDA graph reads them by address."""
     hit = _mask_cache.get(id(maskd))
     if hit is not None and hit[0]() is maskd and hit[1] == maskd._version:
         return hit[2]
     bits = mask_bits(maskd)
     if len(_mask_cache) > 64:
-        _mask_cache.clear()
+        for k in [k for k, v in _mask_cache.items() if v[0]() is None]:
+            del _mask_cache[k]
     _mask_cache[id(maskd)] = (weakref.ref(maskd), maskd._version, bits)
     return bits
 

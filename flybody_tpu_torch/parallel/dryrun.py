@@ -14,7 +14,9 @@ torchrun's group (a group of one still goes through the collectives).
 Each rank runs walk_on_ball (time_limit 0.05) with the JAX dry run's
 sizes scaled by W (one env per rank, unroll 7, n-step 5, 4 action samples,
 a batch of 2 per rank) and prints one JSON row: pid, procs, envs, s/iter,
-solve_rows launches, the learner steps and a hash of the parameters
+solve_rows launches (on a card counted from a CUDA-activity trace of the
+iteration, so those of a replayed CUDA graph too; 0 on the CPU, which
+runs B1's plain version), the learner steps and a hash of the parameters
 (equal on every rank when the gradient all-reduce works).
 
 ``spawn`` runs any worker of this module on W ranks and returns each
@@ -26,6 +28,7 @@ rank's result: the tests and chip_smoke.py drive the split-batch update
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import hashlib
 import json
@@ -70,7 +73,7 @@ def iteration_worker(r: int, device, dtype=torch.float32) -> dict:
     from flybody_tpu_torch.agents.dmpo import DMPOConfig
     from flybody_tpu_torch.agents.train import DMPOTrainer, TrainerConfig
     from flybody_tpu_torch.fly_envs import walk_on_ball
-    from flybody_tpu_torch.ops import solver_kernels
+    from flybody_tpu_torch.profile_step import hand_launches, launch_trace
 
     w = D.world_size()
     env = walk_on_ball(device=device, dtype=dtype, time_limit=0.05)
@@ -81,15 +84,17 @@ def iteration_worker(r: int, device, dtype=torch.float32) -> dict:
                         num_samples=NUM_SAMPLES))
     trainer = DMPOTrainer(env, cfg)
     loop = D.make_global_loop_state(trainer, 0)
+    on_card = torch.device(device).type == "cuda"
     _sync(device)
-    solver_kernels.solve_rows.launches = 0
-    t0 = time.perf_counter()
-    loop, metrics = trainer.train_iteration(loop)
-    _sync(device)
-    dt = time.perf_counter() - t0
+    with launch_trace() if on_card else contextlib.nullcontext() as trace:
+        t0 = time.perf_counter()
+        loop, metrics = trainer.train_iteration(loop)
+        _sync(device)
+        dt = time.perf_counter() - t0
     return {"pid": r, "procs": w, "envs": cfg.num_envs,
             "s_per_iter": dt,
-            "solve_rows_launches": solver_kernels.solve_rows.launches,
+            "solve_rows_launches": (hand_launches(trace)["solve_rows"]
+                                    if on_card else 0),
             "learner_steps": loop.train.steps,
             "params": param_hash(loop.train),
             "metrics": {k: float(v) for k, v in metrics.items()}}

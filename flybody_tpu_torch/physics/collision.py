@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from flybody_tpu_torch.math import bquat as bq
+from flybody_tpu_torch.math.consts import literal
 from flybody_tpu_torch.ops import rows
 from flybody_tpu_torch.physics import types as T
 from flybody_tpu_torch.physics.io_mj import PAIR_NCON
@@ -130,8 +131,8 @@ def _plane_cylinder(p1, m1, s1, p2, m2, s2):
     return dd, pos, n[:, None].expand(pts.shape)
 
 
-_BOX_CORNERS = np.array([[sx, sy, sz] for sx in (-1., 1.)
-                         for sy in (-1., 1.) for sz in (-1., 1.)])
+_BOX_CORNERS = tuple((sx, sy, sz) for sx in (-1., 1.)
+                     for sy in (-1., 1.) for sz in (-1., 1.))
 
 
 def _plane_box(p1, m1, s1, p2, m2, s2):
@@ -139,8 +140,7 @@ def _plane_box(p1, m1, s1, p2, m2, s2):
     sort (a box lying flat has exact ties; the lower corner index goes
     first, as in the JAX package's argsort)."""
     n = m1[..., :, 2, :]
-    corners = torch.as_tensor(_BOX_CORNERS, dtype=p2.dtype,
-                              device=p2.device)
+    corners = literal(_BOX_CORNERS, p2.dtype, p2.device)
     corner_l = corners[None, :, :, None] * s2[:, None]      # (P, 8, 3, .)
     pts = p2[:, None] + bq.matvec(m2[:, None], corner_l)    # (P, 8, 3, B)
     dd = torch.sum(pts * n[:, None], dim=-2) - _dot(p1, n)  # (P, 8, B)

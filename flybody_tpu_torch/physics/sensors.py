@@ -91,18 +91,20 @@ _SITE_FRAME = (T.SENS_GYRO, T.SENS_VELOCIMETER) + _NEED_ACC
 
 def _sensor_plan(m: Model):
     """Per sensor (type, object id, address, object type, its site's body
-    and that body's com root, a touch sensor's analytic contact slots or
-    None); whether any sensor needs the post-constraint accelerations."""
+    and that body's com root, a touch sensor's mask over the candidate
+    slots, set on its body's analytic slots, or None); whether any sensor
+    needs the post-constraint accelerations."""
     lay = slot_layout(m) if m.ncon_max else None
     out = []
     for st, oid, a, ot in zip(*(np.asarray(x).tolist() for x in (
             m.sensor_type, m.sensor_objid, m.sensor_adr, m.sensor_objtype))):
         b = (int(m.site_bodyid[oid])
              if st in _SITE_FRAME + (T.SENS_TOUCH,) else 0)
-        on = (np.flatnonzero((lay.b1 == b) | (lay.b2 == b))
-              if st == T.SENS_TOUCH and lay is not None else [])
+        on = np.zeros(len(lay.cand_b1) if lay is not None else 0, bool)
+        if st == T.SENS_TOUCH and lay is not None:
+            on[:len(lay.b1)] = (lay.b1 == b) | (lay.b2 == b)
         out.append((st, oid, a, ot, b, int(m.body_rootid[b]),
-                    m.ix(on) if len(on) else None))
+                    m.const(on) if on.any() else None))
     return tuple(out), any(st in _NEED_ACC for st, *_ in out)
 
 
@@ -141,7 +143,10 @@ def sensor(m: Model, d: Data) -> Data:
         elif st == T.SENS_TOUCH:
             val = d.qpos.new_zeros((B,))
             if touch is not None:
-                mask = torch.isin(d.warm_sel.long(), touch).to(d.qpos.dtype)
+                # the selected contacts on the sensor's slots (-1 pads)
+                sel = d.warm_sel.long()
+                mask = (touch[sel.clamp(min=0)] & (sel >= 0)).to(
+                    d.qpos.dtype)
                 val = torch.sum(d.warm_f[:, 0] * mask, dim=0)
             put(a, torch.clamp(val, min=0.0))
         elif st == T.SENS_JOINTPOS:

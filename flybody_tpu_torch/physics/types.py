@@ -96,10 +96,16 @@ def _map_tensors(obj, fn):
 
 
 class _Tensors:
-    """replace() / to() for dataclasses whose leaves are tensors."""
+    """replace() / map_tensors() / to() for dataclasses whose leaves are
+    tensors."""
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+    def map_tensors(self, fn):
+        """A copy with ``fn`` applied to every tensor, those of nested
+        dataclasses too, in field order."""
+        return _map_tensors(self, fn)
 
     def to(self, device=None, dtype=None):
         """Move every tensor to ``device``; floating tensors also to
@@ -108,7 +114,7 @@ class _Tensors:
             if dtype is not None and t.is_floating_point():
                 return t.to(device=device, dtype=dtype)
             return t.to(device=device)
-        return _map_tensors(self, fn)
+        return self.map_tensors(fn)
 
 
 @dataclasses.dataclass

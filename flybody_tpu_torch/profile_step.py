@@ -11,23 +11,29 @@ initial states runs one every control step), (2) on a task with eyes,
 the eye render as a stage of its own (both eyes, run twice per control
 step: the step's obs and the auto-reset's fresh batch): its host-clock
 ms, its device time and launches, its peak device memory and its share
-of the control step, and (3) from one control step under torch.profiler,
-with no fence added inside it: device time by kernel, the device-busy
-total against the wall time, the number of kernel launches, one table
-per fresh and per update substep of the program's stage spans (host ms,
-device ms of the kernels launched inside the span, launches), the env's
-spans, and the program's counters (``utils/telemetry.py``). Needs a CUDA
-device.
+of the control step, (3) from one control step as it runs (its substeps
+one CUDA graph's replay, ``envs/substeps.py``) under torch.profiler, with
+no fence added inside it: device time by kernel, the device-busy total
+against the wall time, the number of kernel launches, the env's spans
+and the program's counters (``utils/telemetry.py``), and (4) the
+substeps alone, eager and replayed (host-clock ms of each), and from the
+eager loop function under torch.profiler one table per fresh and per
+update substep of the program's stage spans (host ms, device ms of the
+kernels launched inside the span, launches): a replay has no stage
+spans. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
+import re
 import sys
 import time
 
 import torch
 
+from flybody_tpu_torch.envs import substeps
 from flybody_tpu_torch.train_dmpo import make_env
 from flybody_tpu_torch.utils import telemetry as tm
 
@@ -43,6 +49,67 @@ def device_rows(prof) -> list:
     return [a for a in events
             if a.device_type == torch.autograd.DeviceType.CUDA
             and a.key not in host]
+
+
+# the hand kernels by their names in a device trace (each in an anonymous
+# namespace, a template's arguments after it), and the wrapper of each;
+# upsolve_yd_kernel<true> builds J on the fly
+_HAND = re.compile(r"::(solve_rows|apgd|upsolve_yd|admm|ccd|kin)_kernel"
+                   r"(<true>)?[<(]")
+HAND_WRAPPERS = {"solve_rows": "solve_rows", "apgd": "apgd_iterate",
+                 "upsolve_yd": "upsolve_yd", "upsolve_yd<true>":
+                 "upsolve_build_yd", "admm": "admm_iterate",
+                 "ccd": "ccd_narrowphase", "kin": "kinematics"}
+
+
+# the idle margin at both ends of a launch trace, and the marker kernels
+# launched inside each end (``torch.cuda._sleep``'s)
+TRACE_MARGIN_S = 0.5
+MARKERS = 8
+
+
+@contextlib.contextmanager
+def launch_trace():
+    """A torch.profiler run of CUDA activity for ``hand_launches``, opened
+    and closed on an idle device with TRACE_MARGIN_S of nothing and
+    MARKERS marker kernels at both ends. On a card a run without them
+    lost device events at its ends: the one kernel of a run opened 10 ms
+    before it, the first kernels of a step. The markers and the margins
+    stand between those ends and the kernels counted."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
+        yield prof
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+
+
+def hand_kernels(prof) -> dict:
+    """{device name: launches} of the hand kernels in a stopped
+    torch.profiler run that traced CUDA activity: the kernels a replayed
+    CUDA graph ran count one by one, as they ran."""
+    cpu = torch.autograd.DeviceType.CPU
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cpu and _HAND.search(e.name()):
+            out[e.name()] = out.get(e.name(), 0) + 1
+    return out
+
+
+def hand_launches(prof) -> dict:
+    """{wrapper: launches on the device} of every hand kernel (those of
+    ``HAND_WRAPPERS``) in a stopped torch.profiler run, 0 where none
+    ran."""
+    out = dict.fromkeys(HAND_WRAPPERS.values(), 0)
+    for name, n in hand_kernels(prof).items():
+        m = _HAND.search(name)
+        out[HAND_WRAPPERS[m.group(1) + (m.group(2) or "")]] += n
+    return out
 
 
 LAUNCH_CALLS = frozenset((
@@ -224,9 +291,6 @@ def main(B: int = 4096, task: str = "walk_on_ball") -> None:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms {a.count:6d}x  "
               f"{a.key[:90]}")
     spans, ops = timeline(prof)
-    for kind, table in substep_tables(spans, ops, m.col_refresh).items():
-        _print_rows(f"{kind} substep (the mean of the step's): host "
-                    f"{sum(v[0] for v in table.values()):.2f} ms", table)
     _print_rows("the env's spans over the step (env.reset lies inside "
                 "env.autoreset)", span_rows(spans, ops, "env."))
     print("\ncounters: " + ", ".join(f"{k} {v:.0f}"
@@ -235,6 +299,43 @@ def main(B: int = 4096, task: str = "walk_on_ball") -> None:
         print(f"B1 rows carrying a force: "
               f"{100 * counts['solver.rows_used'] / counts['solver.rows']:.2f}"
               f" %")
+    substep_split(env, state.data)
+
+
+def substep_split(env, data) -> None:
+    """The substeps of a control step from ``data``: host-clock ms of the
+    eager loop function and of the graph's replay (median of 3, fenced),
+    then the eager loop under torch.profiler, split by stage span."""
+    from torch.profiler import ProfilerActivity, profile
+    m, n = env.model, env.n_substeps
+    ways = {"eager": lambda: substeps.run(m, data, n)}
+    if substeps.engages(m, data):
+        ways["graph"] = lambda: env._graphs(m, data, n)
+    for way, fn in ways.items():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"\nsubsteps {way}: {1e3 * sorted(times)[1]:.1f} ms "
+              f"(median of 3)")
+    tm.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with tm.span("env.step"):
+            substeps.run(m, data, n)
+        torch.cuda.synchronize()
+    counts = tm.counters()
+    tm.clear()
+    spans, ops = timeline(prof)
+    for kind, table in substep_tables(spans, ops, m.col_refresh).items():
+        _print_rows(f"{kind} substep of the eager loop (the mean of the "
+                    f"step's): host {sum(v[0] for v in table.values()):.2f}"
+                    f" ms", table)
+    print("\neager loop counters: " + ", ".join(
+        f"{k} {v:.0f}" for k, v in sorted(counts.items())))
 
 
 if __name__ == "__main__":

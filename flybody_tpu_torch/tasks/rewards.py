@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from flybody_tpu_torch.math import quaternions as mq
+from flybody_tpu_torch.math.consts import literal
 from flybody_tpu_torch.physics.types import Data, Model
 
 # Default stds for fruitfly walking imitation
@@ -107,6 +108,5 @@ def reward_factors_deep_mimic(walker_features: dict,
     diffs = compute_diffs(walker_features, reference_features, n=2)
     factors = torch.stack([torch.exp(-0.5 / std[k] ** 2 * diffs[k])
                            for k in walker_features])
-    w = torch.as_tensor(weights, dtype=factors.dtype,
-                        device=factors.device)
+    w = literal(tuple(weights), factors.dtype, factors.device)
     return factors * w[:, None]

@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from flybody_tpu_torch.math.consts import literal
+
 _DEFAULT_VALUE_AT_MARGIN = 0.1
 
 
@@ -47,7 +49,9 @@ def tolerance(x, bounds=(0.0, 0.0), margin=0.0, sigmoid="gaussian",
     (margin may be a tensor; margin == 0 is a hard cutoff)."""
     lower, upper = bounds
     in_bounds = (lower <= x) & (x <= upper)
-    margin = torch.as_tensor(margin, dtype=x.dtype, device=x.device)
+    margin = (torch.as_tensor(margin, dtype=x.dtype, device=x.device)
+              if isinstance(margin, torch.Tensor)
+              else literal(margin, x.dtype, x.device))
     d = (torch.where(x < lower, lower - x, x - upper)
          / torch.where(margin == 0, torch.ones_like(margin), margin))
     soft = _sigmoid(d, value_at_margin, sigmoid)

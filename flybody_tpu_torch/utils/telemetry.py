@@ -11,6 +11,8 @@ nothing else turns them on.
         ...
     tm.counters()   # {name: float}, after the profiler stopped
     tm.clear()
+    with tm.unrecorded():   # what is counted inside is dropped
+        ...
 
 A span is a ``torch.profiler.record_function`` range while a profiler
 records (``torch.profiler.profile`` or ``torch.autograd.profiler.profile``),
@@ -85,6 +87,11 @@ def spanned(name: str):
     return wrap
 
 
+def recording() -> bool:
+    """True while a torch profiler records (spans and counters are on)."""
+    return bool(_profiler._is_profiler_enabled)
+
+
 def count(name: str, value) -> None:
     """Add ``value`` to the counter ``name`` while a profiler records: a
     host number as it is, a tensor as the number of its non-zero elements,
@@ -122,3 +129,19 @@ def clear() -> None:
     _host.clear()
     _held.clear()
     _events.clear()
+
+
+@contextlib.contextmanager
+def unrecorded():
+    """Counters and timed spans made inside are dropped on exit: the
+    capture of a CUDA graph runs the program's code, but its work runs
+    later, on each replay."""
+    saved = (dict(_host), {n: list(v) for n, v in _held.items()},
+             {n: list(v) for n, v in _events.items()})
+    try:
+        yield
+    finally:
+        clear()
+        _host.update(saved[0])
+        _held.update(saved[1])
+        _events.update(saved[2])

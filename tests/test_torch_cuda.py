@@ -20,6 +20,7 @@ from flybody_tpu_torch.ops import solver_kernels as SK
 from flybody_tpu_torch.ops import tree_ldl as TL
 from flybody_tpu_torch.physics import solver_dense as SD
 from flybody_tpu_torch import profile_solve_rows as PS
+from flybody_tpu_torch import profile_step as PSTEP
 
 KW = dict(kl=32, kc=40, iterations=20, noslip_iterations=3, power_iters=4)
 ROW_ARGS = ("d6", "u6", "b1", "b2", "lim_sign", "lim_dadr", "maskd", "ld",
@@ -677,8 +678,10 @@ def test_new_kernels_refuse_float64_on_card():
 @pytest.mark.cuda
 def test_flight_imitation_on_card():
     """fly_envs.flight_imitation() builds on "cuda" by default and one
-    control step of 64 envs launches solve_rows once per substep (4),
-    with the wing fluid acting in every env and finite observations."""
+    control step of 64 envs launches solve_rows once per substep (4, in
+    a device trace: the step also captures the substeps' graph, which
+    calls the wrapper again without running the kernel), with the wing
+    fluid acting in every env and finite observations."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
     from flybody_tpu_torch.fly_envs import flight_imitation
@@ -688,10 +691,9 @@ def test_flight_imitation_on_card():
     lo, hi = env.action_spec()
     mid = torch.as_tensor((lo + hi) / 2, dtype=torch.float32,
                           device="cuda")[None].expand(64, -1)
-    n0 = SK.solve_rows.launches
-    state = env.autoreset_step(state, mid)
-    torch.cuda.synchronize()
-    assert SK.solve_rows.launches == n0 + 4
+    with PSTEP.launch_trace() as prof:
+        state = env.autoreset_step(state, mid)
+    assert PSTEP.hand_launches(prof)["solve_rows"] == 4
     assert bool((state.data.qfrc_fluid.abs().amax(dim=0) > 0).all())
     for v in state.obs.values():
         assert bool(torch.isfinite(v).all())

@@ -20,6 +20,7 @@ from benchmark import trace as btrace
 from flybody_tpu_torch import profile_step as PS
 from flybody_tpu_torch.agents.dmpo import DMPOConfig
 from flybody_tpu_torch.agents.train import DMPOTrainer, TrainerConfig
+from flybody_tpu_torch.envs import substeps
 from flybody_tpu_torch.physics import forward as F
 from flybody_tpu_torch.tasks import vision_flight as VF
 from flybody_tpu_torch.tasks import walk_imitation as WI
@@ -235,6 +236,8 @@ def test_counters_equal_hand_counts(fly, traced):
     assert lanes == 96 * B
     assert c == {"solver.rows": float(env.n_substeps * R * B),
                  "solver.rows_used": float(used),
+                 "physics.substeps": float(env.n_substeps),
+                 "physics.graph_substeps": 0.0,
                  "ccd.lanes": float((env.n_substeps + 1) * lanes),
                  "kinematics.bodies": float((env.n_substeps + 1)
                                             * env.model.nbody * B),
@@ -459,9 +462,12 @@ def test_profile_step_tables(fly, traced):
 
 
 @pytest.fixture
-def card():
+def card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
+    # the eager loop: a CUDA graph's replay runs the substeps' kernels
+    # from one launch call and without their stage spans
+    monkeypatch.setattr(substeps, "engages", lambda m, d: False)
     env = WI.make_walk_imitation("cuda", dtype=torch.float32)
     gen = torch.Generator("cuda").manual_seed(0)
     lo, hi = env.action_spec()
